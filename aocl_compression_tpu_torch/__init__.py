@@ -1,0 +1,26 @@
+"""aocl_compression_tpu_torch — the PyTorch/CUDA port of aocl_compression_tpu.
+
+The same unified API, handle, tier dispatch and RAP streams as the JAX
+package, on torch tensors. Device tiers run on an NVIDIA GPU; hot stages
+that were Pallas kernels are hand-written CUDA kernels
+(aocl_compression_tpu_torch/csrc). Codecs are ported slice by slice; this
+package currently carries lz4.
+
+Quick start:
+
+    import aocl_compression_tpu_torch as act
+    h = act.setup("lz4", opt_var=2, block_size=65536)   # device="cuda"
+    c = act.compress(h, data)
+    d = act.decompress(h, c)
+    act.destroy(h)
+
+``setup(..., device="cpu")`` runs the device tiers' plain PyTorch versions
+on the CPU.
+"""
+
+from .api import (CompressionError, ErrorCode, Handle, Method,  # noqa: F401
+                  Stats, compress, compress_bound, decompress, destroy,
+                  get_codec, list_codecs, setup, version)
+from .utils.config import get_config, set_config  # noqa: F401
+
+__version__ = "0.1.0"

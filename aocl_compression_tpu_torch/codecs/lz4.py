@@ -1,0 +1,185 @@
+"""LZ4 codec — block format, greedy fast compressor.
+
+Tiers:
+  HOST  — own C++ implementation (csrc/lz4_host.cpp) via ctypes.
+  TORCH — the sort-emit device encoder (ops/lz4_device.py) on the handle's
+          device, compacted by the CUDA kernel in ops/compact.py.
+Decode runs on the host C++ decoder (the JAX package's default route).
+
+Level semantics: LZ4 fast has no levels in the reference; the handle's
+opt_var carries the acceleration factor (>=1), like LZ4_compress_fast.
+opt_var >= 2 selects the device encoder.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from ..api.handle import Handle
+from ..parallel import container
+from ..runtime import native
+from ..utils import dispatch
+from ..utils.config import TIER_HOST, TIER_TORCH, get_config
+from . import lz4_stitch
+from .base import Codec
+
+_MAX_ONESHOT_GROW = 1 << 30
+
+
+class Lz4Codec(Codec):
+    name = "lz4"
+    version = "1.9.3-tpu"
+    min_level, max_level, default_level = 0, 0, 0
+
+    def compress_bound(self, n: int) -> int:
+        cfg = get_config()
+        return (native.lz4_compress_bound(n)
+                + native.rap_frame_bound(n, cfg.default_block_size))
+
+    def _block_size(self, handle: Handle) -> int:
+        return handle.block_size or get_config().default_block_size
+
+    def _rap_enabled(self, handle: Handle) -> bool:
+        if handle.enable_rap is not None:
+            return handle.enable_rap
+        device = max(1, handle.opt_var) >= 2
+        return get_config().enable_rap and not container.st_fallback(
+            handle, device)
+
+    def _adapter(self, handle: Handle) -> container.BlockCodecAdapter:
+        accel = max(1, handle.opt_var)
+        # the device pipeline is the throughput mode (tile-anchor parse);
+        # accel<=1 keeps the serial-greedy ratio semantics on the host tier
+        cap = handle.max_tier if accel >= 2 else TIER_HOST
+        cb, ctier = dispatch.resolve_with_tier(
+            self.name, "compress_blocks", cap, handle.opt_off)
+        if ctier == TIER_HOST:
+            # host tier fans out over a thread pool (reference MT compress,
+            # lz4.c:2655-2930); num_shards is the numThreads analog
+            def compress(blocks):
+                return cb(blocks, accel, workers=handle.num_shards or None)
+        else:
+            # mem_limit caps the input bytes per device batch; batching
+            # happens BELOW the stitcher, so the stream layout is unchanged
+            def compress(blocks):
+                return cb(blocks, accel, handle.device,
+                          mem_limit=handle.mem_limit or None)
+        db = dispatch.resolve(self.name, "decompress_blocks", TIER_HOST)
+        bs = self._block_size(handle)
+
+        def decompress(chunks, dlens):
+            return db(chunks, dlens, bs, workers=handle.num_shards or None)
+
+        return container.BlockCodecAdapter(
+            compress_blocks=compress, decompress_blocks=decompress)
+
+    def compress(self, handle: Handle, data: bytes) -> bytes:
+        if self._rap_enabled(handle):
+            out = container.compress_rapped(data, self._block_size(handle),
+                                            self._adapter(handle))
+            if out is not None:
+                return out
+        accel = max(1, handle.opt_var)
+        fn, tier = dispatch.resolve_with_tier(
+            self.name, "compress",
+            handle.max_tier if accel >= 2 else TIER_HOST, handle.opt_off)
+        if tier == TIER_HOST:
+            return fn(data, accel)
+        return fn(data, accel, handle.device)
+
+    def decompress(self, handle: Handle, data: bytes,
+                   expected_size: Optional[int] = None) -> bytes:
+        out = container.decompress_rapped(data, self._adapter(handle))
+        if out is not None:
+            return out
+        return _oneshot_decompress(data, expected_size)
+
+
+def _oneshot_decompress(data: bytes, expected_size: Optional[int]) -> bytes:
+    """Serial-safe decode. The block format has no size header; when the
+    caller does not know the size, a structural token scan (C++, no byte
+    movement) computes it exactly so the buffer is allocated once."""
+    if expected_size is not None:
+        return native.lz4_decompress(data, expected_size)
+    size = native.lz4_decompressed_size(data)
+    if size < 0 or size > _MAX_ONESHOT_GROW:
+        raise ValueError("lz4 decompress: corrupt stream or oversized")
+    return native.lz4_decompress(data, size)
+
+
+def _block_groups(blocks, mem_limit):
+    """Split blocks into groups of <= mem_limit input bytes per dispatch
+    (the reference's memLimit semantics, codec_bench -m). Applied BELOW
+    the stitcher: groups only bound device batch sizes, never the stream
+    layout."""
+    groups, cur, size = [], [], 0
+    for b in blocks:
+        if cur and size + len(b) > mem_limit:
+            groups.append(cur)
+            cur, size = [], 0
+        cur.append(b)
+        size += len(b)
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+# --- host-tier variants -------------------------------------------------------
+
+@dispatch.register("lz4", "compress", TIER_HOST, "lz4_compress_host")
+def _compress_host(data: bytes, accel: int) -> bytes:
+    return native.lz4_compress(data, accel)
+
+
+@dispatch.register("lz4", "compress_blocks", TIER_HOST,
+                   "lz4_compress_blocks_host")
+def _compress_blocks_host(blocks: Sequence[bytes], accel: int, workers=None):
+    from ..parallel import host_pool
+    frags = host_pool.parallel_map(
+        lambda b: native.lz4_compress_tail(b, accel), blocks,
+        workers=workers, total_bytes=sum(len(b) for b in blocks))
+    return lz4_stitch.stitch(frags, blocks)
+
+
+@dispatch.register("lz4", "decompress_blocks", TIER_HOST,
+                   "lz4_decompress_blocks_host")
+def _decompress_blocks_host(chunks: Sequence[bytes], dlens: Sequence[int],
+                            block_size: int, workers=None) -> List[bytes]:
+    # parallel RAP fan-out — the reference's default MT decompress
+    # (threads/threads.c:174-293, lz4.c:4785-4860)
+    from ..parallel import host_pool
+    return host_pool.parallel_map(
+        lambda cd: native.lz4_decompress(cd[0], cd[1]) if cd[1] else b"",
+        list(zip(chunks, dlens)), workers=workers,
+        total_bytes=int(sum(dlens)))
+
+
+# --- device-tier variants (ops/lz4_device.py) --------------------------------
+
+@dispatch.register("lz4", "compress_blocks", TIER_TORCH,
+                   "lz4_compress_blocks_torch")
+def _compress_blocks_torch(blocks: Sequence[bytes], accel: int, device,
+                           mem_limit=None):
+    from ..ops import lz4_device
+    if max(len(b) for b in blocks) > lz4_device.MAX_DEVICE_BLOCK:
+        return _compress_blocks_host(blocks, accel)  # 16-bit packing limit
+    bodies, tails = [], []
+    for g in (_block_groups(blocks, mem_limit) if mem_limit else [blocks]):
+        bo, ta = lz4_device.encode_blocks(g, accel, device=device)
+        bodies.extend(bo)
+        tails.extend(ta)
+    return lz4_stitch.stitch_bodies(bodies, tails, blocks)
+
+
+@dispatch.register("lz4", "compress", TIER_TORCH, "lz4_compress_torch")
+def _compress_torch(data: bytes, accel: int, device) -> bytes:
+    """Single-shot serial stream via the device pipeline: stitch the block
+    fragments and join them without a RAP frame."""
+    from ..ops import lz4_device
+    bs = min(get_config().default_block_size, lz4_device.MAX_DEVICE_BLOCK)
+    if len(data) < 1024:  # device dispatch overhead dwarfs tiny inputs
+        return native.lz4_compress(data, accel)
+    blocks = container.split_blocks(data, bs)
+    bodies, tails = lz4_device.encode_blocks(blocks, accel, device=device)
+    chunks, _ = lz4_stitch.stitch_bodies(bodies, tails, blocks)
+    return b"".join(chunks)

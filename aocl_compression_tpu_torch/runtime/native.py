@@ -1,0 +1,207 @@
+"""ctypes bindings to the shared host runtime (csrc/libaocl_tpu_host.so).
+
+The port binds the same C++ library as the JAX package, restricted to the
+symbols its codecs use: the LZ4 block codec and the RAP container
+writer/parser. The library is built with ``make -C csrc`` on first use
+when it is missing or older than its sources.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import Optional
+
+import numpy as np
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc")
+_LIBPATH = os.path.join(_CSRC, "libaocl_tpu_host.so")
+
+_lib = None
+_lock = threading.Lock()
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_u32p = ctypes.POINTER(ctypes.c_uint32)
+_i64 = ctypes.c_int64
+_i32 = ctypes.c_int32
+
+_SIGNATURES = [
+    ("atpu_lz4_compress_bound", _i64, [_i64]),
+    ("atpu_lz4_compress", _i64, [_u8p, _i64, _u8p, _i64, _i32]),
+    ("atpu_lz4_compress_tail", _i64,
+     [_u8p, _i64, _u8p, _i64, _i32, ctypes.POINTER(_i64)]),
+    ("atpu_lz4_decompress", _i64, [_u8p, _i64, _u8p, _i64]),
+    ("atpu_lz4_decompressed_size", _i64, [_u8p, _i64]),
+    ("atpu_rap_frame_len", _i64, [_i32]),
+    ("atpu_rap_write", _i64, [_u8p, _i64, _i32, _u32p, _u32p, _u32p]),
+    ("atpu_rap_parse", _i64, [_u8p, _i64, _u32p, _u32p, _u32p, _i32]),
+    ("atpu_rap_skip", _i64, [_u8p, _i64]),
+    ("atpu_rap_frame_bound", _i64, [_i64, _i64]),
+]
+
+
+def _build() -> None:
+    subprocess.run(["make", "-C", _CSRC, "-s"], check=True)
+
+
+def get_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                if f.endswith(".cpp")]
+        if (not os.path.exists(_LIBPATH)
+                or any(os.path.getmtime(s) > os.path.getmtime(_LIBPATH)
+                       for s in srcs)):
+            _build()
+        lib = ctypes.CDLL(_LIBPATH)
+        for name, restype, argtypes in _SIGNATURES:
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _lib = lib
+        return _lib
+
+
+def _as_u8p(buf: np.ndarray):
+    return buf.ctypes.data_as(_u8p)
+
+
+def _tobuf(data: bytes) -> np.ndarray:
+    return np.frombuffer(data, dtype=np.uint8)
+
+
+# --- zero-copy output buffers -------------------------------------------------
+# The codec writes straight into an uninitialized `bytes` object (the
+# CPython pattern for building a bytes in place while holding the sole
+# reference), which is then returned as is or cut to its written length.
+
+_PyBytes_FromStringAndSize = ctypes.pythonapi.PyBytes_FromStringAndSize
+_PyBytes_FromStringAndSize.restype = ctypes.py_object
+_PyBytes_FromStringAndSize.argtypes = [ctypes.c_void_p, ctypes.c_ssize_t]
+_PyBytes_AsString = ctypes.pythonapi.PyBytes_AsString
+_PyBytes_AsString.restype = ctypes.c_void_p
+_PyBytes_AsString.argtypes = [ctypes.py_object]
+
+
+def _alloc_out(cap: int):
+    """(bytes object, u8 pointer) over `cap` uninitialized bytes."""
+    obj = _PyBytes_FromStringAndSize(None, max(cap, 1))
+    ptr = ctypes.cast(_PyBytes_AsString(obj), _u8p)
+    return obj, ptr
+
+
+def _finish_out(obj: bytes, n: int) -> bytes:
+    """Finalize an _alloc_out buffer at its written length."""
+    if len(obj) == n:
+        return obj
+    return ctypes.string_at(_PyBytes_AsString(obj), n)
+
+
+# --- LZ4 --------------------------------------------------------------------
+
+def lz4_compress_bound(n: int) -> int:
+    return get_lib().atpu_lz4_compress_bound(n)
+
+
+def lz4_compress(data: bytes, accel: int = 1) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = lib.atpu_lz4_compress_bound(len(data))
+    ref, dp = _alloc_out(cap)
+    n = lib.atpu_lz4_compress(_as_u8p(src), len(data), dp, cap, accel)
+    if n < 0:
+        raise ValueError("lz4 host compress failed")
+    return _finish_out(ref, n)
+
+
+def lz4_compress_tail(data: bytes, accel: int = 1) -> tuple:
+    """Compress and also return the trailing-literal count of the final
+    literal-only sequence (needed by the RAP boundary stitcher)."""
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = lib.atpu_lz4_compress_bound(len(data))
+    ref, dp = _alloc_out(cap)
+    tail = _i64(0)
+    n = lib.atpu_lz4_compress_tail(_as_u8p(src), len(data), dp,
+                                   cap, accel, ctypes.byref(tail))
+    if n < 0:
+        raise ValueError("lz4 host compress failed")
+    return _finish_out(ref, n), tail.value
+
+
+def lz4_decompress(data: bytes, expected_size: int) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    ref, dp = _alloc_out(expected_size)
+    n = lib.atpu_lz4_decompress(_as_u8p(src), len(data), dp, expected_size)
+    if n < 0:
+        raise ValueError("lz4 host decompress failed (corrupt stream?)")
+    return _finish_out(ref, n)
+
+
+def lz4_decompressed_size(data: bytes) -> int:
+    """Exact decompressed size from a structural token scan (no byte
+    movement); -1 if the stream structure is malformed."""
+    lib = get_lib()
+    src = _tobuf(data)
+    return int(lib.atpu_lz4_decompressed_size(_as_u8p(src), len(data)))
+
+
+# --- RAP container ----------------------------------------------------------
+
+def rap_frame_len(n_main: int) -> int:
+    return get_lib().atpu_rap_frame_len(n_main)
+
+
+def rap_write(n_main: int, offsets, lens, dlens) -> bytes:
+    lib = get_lib()
+    offs = np.ascontiguousarray(offsets, dtype=np.uint32)
+    lns = np.ascontiguousarray(lens, dtype=np.uint32)
+    dls = np.ascontiguousarray(dlens, dtype=np.uint32)
+    dst = np.empty(lib.atpu_rap_frame_len(n_main), dtype=np.uint8)
+    n = lib.atpu_rap_write(_as_u8p(dst), dst.size, n_main,
+                           offs.ctypes.data_as(_u32p),
+                           lns.ctypes.data_as(_u32p),
+                           dls.ctypes.data_as(_u32p))
+    if n < 0:
+        raise ValueError("rap write failed")
+    return dst[:n].tobytes()
+
+
+def rap_parse(data: bytes) -> Optional[tuple]:
+    """Returns (offsets, lens, dlens) arrays, or None for a legacy stream.
+
+    The RAP header stores the chunk count in a 2-byte field, so one frame
+    describes at most 65,535 chunks.
+    """
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = 1 << 16
+    offs = np.empty(cap, dtype=np.uint32)
+    lns = np.empty(cap, dtype=np.uint32)
+    dls = np.empty(cap, dtype=np.uint32)
+    n = lib.atpu_rap_parse(_as_u8p(src), len(data),
+                           offs.ctypes.data_as(_u32p),
+                           lns.ctypes.data_as(_u32p),
+                           dls.ctypes.data_as(_u32p), cap)
+    if n < 0:
+        raise ValueError("malformed RAP frame")
+    if n == 0:
+        return None
+    return offs[:n].copy(), lns[:n].copy(), dls[:n].copy()
+
+
+def rap_skip(data: bytes) -> int:
+    """Bytes to skip past a RAP frame (0 if none) — aocl_skip_rap_frame_mt."""
+    return get_lib().atpu_rap_skip(_as_u8p(_tobuf(data)), len(data))
+
+
+def rap_frame_bound(src_size: int, chunk_size: int) -> int:
+    return get_lib().atpu_rap_frame_bound(src_size, chunk_size)

@@ -1,0 +1,71 @@
+"""Typed configuration with environment overrides.
+
+Backend tiers (which implementation of a codec runs), lowest first:
+
+  0 = HOST    — host C++ path (csrc/libaocl_tpu_host.so)
+  1 = TORCH   — PyTorch tensor pipeline on the handle's device
+  2 = KERNEL  — hand-written CUDA kernels for the hot stages
+  3 = MULTI   — several devices (not ported yet)
+
+Env vars, read like the JAX package reads them:
+  AOCL_ENABLE_INSTRUCTIONS ∈ {HOST, TORCH, KERNEL, MULTI} — caps the tier.
+    The JAX package's names (XLA, PALLAS, MESH) and the reference's ISA
+    names (SSE2, AVX, AVX2, AVX512) are accepted and mapped.
+  AOCL_DISABLE_OPT — any value forces tier 0.
+  AOCL_ENABLE_LOG ∈ {ERR, INFO, DEBUG, TRACE} — log level.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+TIER_HOST = 0
+TIER_TORCH = 1
+TIER_KERNEL = 2
+TIER_MULTI = 3
+
+_TIER_NAMES = {"HOST": TIER_HOST, "TORCH": TIER_TORCH, "KERNEL": TIER_KERNEL,
+               "MULTI": TIER_MULTI,
+               # the JAX package's tier names
+               "XLA": TIER_TORCH, "PALLAS": TIER_KERNEL, "MESH": TIER_MULTI,
+               # the reference's ISA names
+               "SSE2": TIER_HOST, "AVX": TIER_TORCH, "AVX2": TIER_KERNEL,
+               "AVX512": TIER_MULTI}
+
+
+def max_tier_from_env(default: int = TIER_MULTI) -> int:
+    """Resolve the maximum allowed backend tier (env > default)."""
+    if os.environ.get("AOCL_DISABLE_OPT") is not None:
+        return TIER_HOST
+    val = os.environ.get("AOCL_ENABLE_INSTRUCTIONS")
+    if val:
+        return _TIER_NAMES.get(val.strip().upper(), default)
+    return default
+
+
+@dataclasses.dataclass
+class FrameworkConfig:
+    """Global knobs (the reference's CMake option matrix, at run time)."""
+
+    # Per-codec enable switches (reference: AOCL_EXCLUDE_<CODEC> options).
+    enabled_codecs: tuple = ("lz4", "lz4hc", "snappy", "zlib", "zstd",
+                             "bzip2", "lzma")
+    # RAP multi-block container support (reference: AOCL_ENABLE_THREADS).
+    enable_rap: bool = True
+    # Default block size; the RAP chunking invariant is chunk >= codec
+    # search window.
+    default_block_size: int = 64 * 1024
+
+
+_config = FrameworkConfig()
+
+
+def get_config() -> FrameworkConfig:
+    return _config
+
+
+def set_config(**kwargs) -> FrameworkConfig:
+    global _config
+    _config = dataclasses.replace(_config, **kwargs)
+    return _config

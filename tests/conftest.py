@@ -30,6 +30,11 @@ os.environ.setdefault("AOCL_ENABLE_INSTRUCTIONS", "HOST")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where CUDA is absent")
+
+
 def _text_like(n: int, seed: int = 0) -> bytes:
     """English-ish compressible data (Silesia stand-in; no corpus download
     in this environment)."""

@@ -1,0 +1,74 @@
+"""The port imports neither jax nor anything of aocl_compression_tpu."""
+
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "aocl_compression_tpu_torch")
+
+_BLOCKED_RUN = r"""
+import sys
+sys.modules["jax"] = None
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name == "aocl_compression_tpu" or name.startswith(
+                "aocl_compression_tpu."):
+            raise ImportError("blocked: " + name)
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+import aocl_compression_tpu_torch as act
+from aocl_compression_tpu_torch.ops import compact, lz4_device  # noqa
+data = (b"the block hash match stream " * 200)[:4000]
+h = act.setup("lz4", opt_var=2, block_size=1024, device="cpu")
+c = act.compress(h, data)
+assert act.decompress(h, c) == data
+assert not any(m == "jax" or m.startswith("aocl_compression_tpu.")
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+"""
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    env = dict(os.environ, AOCL_ENABLE_INSTRUCTIONS="TORCH")
+    r = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            yield node.args[0].value
+
+
+def test_source_scan_no_jax_or_reference_imports():
+    bad = []
+    for path in _sources():
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "aocl_compression_tpu"):
+                bad.append((os.path.relpath(path, ROOT), mod))
+    assert bad == []
