@@ -3,19 +3,24 @@ from the encoders' padded (N, OUTCAP) output into one dense buffer on the
 device, so the host fetches ~compressed bytes instead of the padded
 capacity.
 
-CUDA path: the hand-written kernel csrc/compact.cu (one thread block per
-chunk copies only its own rows; the port of the JAX package's
-ops/compact.py::_pallas_compact). It is built with nvcc for sm_90a into
-_build/ at first use and bound with ctypes.
+CUDA path: the hand-written kernels of csrc/compact.cu (the port of the
+JAX package's ops/compact.py::_pallas_compact), two launches with no host
+sync and no other device op between the encoder and the fetch: a
+one-block layout scan over the encoder's raw sizes, then a balanced copy
+of the dense output in 16 KB slabs by 1-D bulk async copies. They are
+built with nvcc for sm_90a into _build/ at first use and bound with
+ctypes.
 
-Plain path: the same layout in PyTorch ops (the JAX package's
-_xla_compact). It runs for tensors on the CPU, and is what the kernel is
-held against on the card.
+Plain path: the same function in PyTorch ops (the layout, and the JAX
+package's _xla_compact for the copy). It runs for tensors on the CPU, and
+is what the kernels are held against on the card.
 
-Row quantum: 512 bytes. Chunks start row-aligned in the dense buffer at
-the exclusive cumsum of ceil(size/512); the host slices exact byte ranges
-out of the fetched buffer (row padding never crosses into another
-chunk's bytes).
+Both return (dense, meta): dense is (N*ROWS, 128) int32 with every chunk
+at its row offset in dense[:used]; meta is int32 [used, row_offs[0..N),
+sz[0..N)], with sz = clamp(sizes, 0, OUTCAP) and row_offs the exclusive
+cumsum of ceil(sz/512). Chunks start row-aligned; the host slices exact
+byte ranges out of the fetched rows (row padding never crosses into
+another chunk's bytes).
 """
 
 from __future__ import annotations
@@ -39,8 +44,12 @@ _LIB = os.path.join(_BUILD, "libatpu_compact.so")
 _lib = None
 _lock = threading.Lock()
 
-#: kernel launches since the last reset (one per compact_rows on CUDA)
+#: kernel launches since the last reset (two per compact_rows on CUDA:
+#: the layout scan and the copy)
 launches = 0
+
+#: nvcc's output of the last build in this process (ptxas resource usage)
+build_log = ""
 
 
 def round_capacity(n: int) -> int:
@@ -51,6 +60,7 @@ def round_capacity(n: int) -> int:
 def build() -> str:
     """Compile csrc/compact.cu for sm_90a into _build/ (if stale) and
     return the library path. Raises if nvcc fails."""
+    global build_log
     if (os.path.exists(_LIB)
             and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
         return _LIB
@@ -60,23 +70,37 @@ def build() -> str:
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{_LIB}.{os.getpid()}.tmp"
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-o", tmp, _SRC], check=True)
+    res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                          "-Xcompiler", "-fPIC", "-o", tmp, _SRC],
+                         capture_output=True, text=True)
+    build_log = res.stdout + res.stderr
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
     os.replace(tmp, _LIB)
     return _LIB
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load a build of csrc/compact.cu and declare its C interface."""
+    lib = ctypes.CDLL(path)
+    lib.atpu_compact_meta_len.restype = ctypes.c_longlong
+    lib.atpu_compact_meta_len.argtypes = [ctypes.c_int] * 2
+    lib.atpu_compact_layout.restype = ctypes.c_int
+    lib.atpu_compact_layout.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.atpu_compact_copy.restype = ctypes.c_int
+    lib.atpu_compact_copy.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    return lib
 
 
 def _get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.atpu_compact_rows
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-                ctypes.c_void_p]
-            _lib = lib
+            _lib = bind(build())
     return _lib
 
 
@@ -88,24 +112,22 @@ def _rows_view(bodies_u8: torch.Tensor) -> torch.Tensor:
         N, OUTCAP // ROWB, ROWW)
 
 
-def _layout(sizes: torch.Tensor, OUTCAP: int):
-    """(clamped sizes, exclusive row offsets, used rows as a 1-element
-    tensor), all int32 on the sizes' device. A flagged block's body may
-    exceed the padded capacity; clamping keeps every copy inside its chunk
-    (the caller replaces such bodies)."""
+def compact_rows_plain(bodies: torch.Tensor, sizes: torch.Tensor):
+    """PyTorch version of the whole function: (dense, meta) as in the
+    module docstring. Rows of dense past `used` hold row 0 (the JAX
+    package's _xla_compact)."""
+    N, OUTCAP = bodies.shape
+    rows = _rows_view(bodies)
+    ROWS = rows.shape[1]
+    total = N * ROWS
+    dev = rows.device
+    # a flagged block's body may exceed the padded capacity; clamping keeps
+    # every copy inside its chunk (the caller replaces such bodies)
     sz = torch.clamp(sizes.to(torch.int32), 0, OUTCAP)
     rowcnt = (sz + (ROWB - 1)) // ROWB
     incl = torch.cumsum(rowcnt, 0, dtype=torch.int32)
-    return sz, incl - rowcnt, incl[-1:]
-
-
-def compact_rows_plain(rows: torch.Tensor, row_offs: torch.Tensor,
-                       used: torch.Tensor) -> torch.Tensor:
-    """PyTorch version: dense[r] = the row that lands at r, for r < used
-    (the JAX package's _xla_compact; rows past `used` hold row 0)."""
-    N, ROWS, _ = rows.shape
-    total = N * ROWS
-    dev = rows.device
+    row_offs = incl - rowcnt
+    used = incl[-1:]
     r = torch.arange(total, dtype=torch.int64, device=dev)
     offs = row_offs.to(torch.int64)
     # owner of each dense row: the last chunk starting at or before it
@@ -119,49 +141,66 @@ def compact_rows_plain(rows: torch.Tensor, row_offs: torch.Tensor,
     src = c * ROWS + (r - offs[c])
     src = torch.where(r < used.to(torch.int64), torch.clamp(src, 0, total - 1),
                       0)
-    return rows.reshape(total, ROWW)[src]
+    return rows.reshape(total, ROWW)[src], torch.cat([used, row_offs, sz])
 
 
-def compact_rows_kernel(rows: torch.Tensor, row_offs: torch.Tensor,
-                        sizes: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/compact.cu on the current stream. Rows of `dense` past
-    the used count are left unwritten."""
+def compact_rows_kernel(bodies: torch.Tensor, sizes: torch.Tensor):
+    """Launch csrc/compact.cu's layout and copy kernels on the current
+    stream: (dense, meta) as in the module docstring; rows of dense past
+    `used` are left unwritten. `sizes` is read in place (any stride)."""
     global launches
-    N, ROWS, _ = rows.shape
-    for t, dt in ((rows, torch.int32), (row_offs, torch.int32),
-                  (sizes, torch.int32)):
-        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
-            raise ValueError("compact_rows_kernel takes contiguous int32 "
-                             "CUDA tensors")
-    if row_offs.shape != (N,) or sizes.shape != (N,):
-        raise ValueError("row_offs and sizes must be (N,)")
-    dense = torch.empty((N * ROWS, ROWW), dtype=torch.int32,
-                        device=rows.device)
-    err = _get_lib().atpu_compact_rows(
-        rows.data_ptr(), row_offs.data_ptr(), sizes.data_ptr(),
-        dense.data_ptr(), N, ROWS, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"compact_rows kernel launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
-    return dense
+    N, OUTCAP = bodies.shape
+    rows = _rows_view(bodies)
+    ROWS = rows.shape[1]
+    if not (rows.is_cuda and sizes.is_cuda and sizes.device == rows.device):
+        raise ValueError("compact_rows_kernel takes CUDA tensors on one "
+                         "device")
+    if sizes.dtype != torch.int32 or sizes.shape != (N,):
+        raise ValueError("sizes must be (N,) int32")
+    if rows.data_ptr() % 16:
+        raise ValueError("bodies must be 16-byte aligned for bulk copies")
+    if N * ROWS >= 2 ** 31:
+        raise ValueError("compact_rows: more than 2^31 - 1 rows")
+    dev = rows.device
+    lib = _get_lib()
+    # meta, then the slab owners the copy kernel reads
+    meta = torch.empty(lib.atpu_compact_meta_len(N, ROWS), dtype=torch.int32,
+                       device=dev)
+    dense = torch.empty((N * ROWS, ROWW), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.atpu_compact_layout(sizes.data_ptr(), sizes.stride(0),
+                                      meta.data_ptr(), N, OUTCAP, stream)
+        if err:
+            raise RuntimeError(f"compact layout kernel launch failed: CUDA "
+                               f"error {err}")
+        launches += 1
+        err = lib.atpu_compact_copy(rows.data_ptr(), meta.data_ptr(),
+                                    dense.data_ptr(), N, ROWS, stream)
+        if err:
+            raise RuntimeError(f"compact copy kernel launch failed: CUDA "
+                               f"error {err}")
+        launches += 1
+    return dense, meta[:2 * N + 1]
+
+
+def _compact(bodies: torch.Tensor, sizes: torch.Tensor):
+    """(dense, meta) on the bodies' device: a CUDA tensor runs the kernels,
+    a CPU tensor the plain version."""
+    if bodies.is_cuda:
+        return compact_rows_kernel(bodies, sizes)
+    if bodies.device.type == "cpu":
+        return compact_rows_plain(bodies, sizes)
+    raise ValueError(f"compact_rows: unsupported device {bodies.device}")
 
 
 def compact_rows(bodies: torch.Tensor, sizes: torch.Tensor):
     """Compact on the bodies' device: returns (dense (N*ROWS, 128) int32,
     row_offs (N,) int32, used (1,) int32, clamped sizes (N,) int32).
-    dense[:used] holds every chunk at its row offset. A CUDA tensor runs
-    the kernel; a CPU tensor runs the plain version."""
-    N, OUTCAP = bodies.shape
-    rows = _rows_view(bodies)
-    sz, row_offs, used = _layout(sizes, OUTCAP)
-    if bodies.is_cuda:
-        dense = compact_rows_kernel(rows, row_offs, sz)
-    elif bodies.device.type == "cpu":
-        dense = compact_rows_plain(rows, row_offs, used)
-    else:
-        raise ValueError(f"compact_rows: unsupported device {bodies.device}")
-    return dense, row_offs, used, sz
+    dense[:used] holds every chunk at its row offset."""
+    N = bodies.shape[0]
+    dense, meta = _compact(bodies, sizes)
+    return dense, meta[1:N + 1], meta[:1], meta[N + 1:]
 
 
 def fetch_chunks(bodies: torch.Tensor, sizes: torch.Tensor) -> List[bytes]:
@@ -169,19 +208,51 @@ def fetch_chunks(bodies: torch.Tensor, sizes: torch.Tensor) -> List[bytes]:
 
     Routed through the dispatch registry so the compactor is an auditable
     tier (KERNEL mirrors the JAX package's fetch_chunks_pallas, TORCH its
-    fetch_chunks_xla); both run the kernel on a CUDA tensor."""
+    fetch_chunks_xla); both run the kernels on a CUDA tensor."""
     from ..utils import dispatch
     fn = dispatch.resolve("container", "fetch_chunks", None)
     return fn(bodies, sizes)
 
 
-def _fetch_impl(bodies: torch.Tensor, sizes: torch.Tensor) -> List[bytes]:
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """Start a copy of a CUDA tensor into pinned host memory (PyTorch's
+    caching host allocator reuses the block); the caller synchronises."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return h.copy_(t, non_blocking=True)
+
+
+def _no_mark(stage: str) -> None:
+    pass
+
+
+def _fetch_impl(bodies: torch.Tensor, sizes: torch.Tensor,
+                mark=_no_mark) -> List[bytes]:
+    """Compact, copy meta and then dense[:used] into pinned host memory
+    (one stream sync each), and slice each chunk's bytes from the pinned
+    rows. On a CUDA tensor, mark(stage) is called on the host at the
+    stage boundaries: after the compaction and the meta copy are enqueued
+    ("compaction", "meta_d2h"), once meta is on the host and the rows'
+    pinned buffer is allocated ("d2h_start"), and after the rows' copy is
+    enqueued ("d2h"); chip_smoke.py records a CUDA event at each to time
+    the stages of this very fetch."""
     N = bodies.shape[0]
-    dense, row_offs, used, sz = compact_rows(bodies, sizes)
-    meta = torch.cat([used, row_offs, sz]).tolist()
-    used_rows, offs, sz = meta[0], meta[1:N + 1], meta[N + 1:]
-    buf = dense[:used_rows].cpu().numpy().tobytes()
-    return [buf[offs[i] * ROWB: offs[i] * ROWB + sz[i]] for i in range(N)]
+    dense, meta = _compact(bodies, sizes)
+    if dense.is_cuda:
+        stream = torch.cuda.current_stream(dense.device)
+        mark("compaction")
+        meta = _to_pinned(meta)
+        mark("meta_d2h")
+        stream.synchronize()
+        used = int(meta[0])
+        rows = torch.empty((used, ROWW), dtype=dense.dtype, pin_memory=True)
+        mark("d2h_start")
+        dense = rows.copy_(dense[:used], non_blocking=True)
+        mark("d2h")
+        stream.synchronize()
+    m = meta.tolist()
+    used, offs, sz = m[0], m[1:N + 1], m[N + 1:]
+    buf = memoryview(dense[:used].reshape(-1).view(torch.uint8).numpy())
+    return [buf[o * ROWB: o * ROWB + s].tobytes() for o, s in zip(offs, sz)]
 
 
 def _register_tiers():

@@ -8,14 +8,20 @@ non-zero before the last line:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build: nvcc for every CUDA source and the host C++ library, started
      together;
-  3. every kernel against its plain PyTorch version at the main path's
-     shapes (N=256 chunks of OUTCAP=65536, sizes from a real encode, plus
-     the edge sizes 0 and OUTCAP), with kernel / plain / library times and
-     the HBM bound;
+  3. every kernel against its plain PyTorch version, output for output:
+     compact_rows (layout scan + bulk copy) at the main path's shapes
+     (N=256 chunks of OUTCAP=65536, sizes from a real encode), at edge
+     sizes (0, OUTCAP, > OUTCAP) and at N=16384 x OUTCAP=512 with random
+     sizes; a profiler window showing that one call runs only the port's
+     two kernels; kernel / plain / library times (device time from
+     CUDA-graph replay) at the main path's shape and at N=16384 x 512, the
+     HBM bound, and the pinned d2h of the used rows beside its measured
+     link-rate bound;
   4. the main path: setup("lz4", opt_var=2, block_size=65536) compress and
      decompress of a 16.8 MB corpus, exact round trip, serial decode after
      skip_rap_frame, the dispatch audit and the kernels' launch counts, and
-     per-stage device times of the same pipeline;
+     per-stage device times of the same pipeline, the compaction and d2h
+     taken inside the API's own fetch;
   5. the bench encoder config (G=8, depth 5, nw 5, subm 64, lazy 1,
      ext_passes 5) on the same corpus;
   6. one JSON line listing every ported kernel;
@@ -74,6 +80,17 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def wall_ms(fn, iters: int = 20) -> float:
+    """Best host-clock time of fn() followed by a device synchronise."""
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return min(ts) * 1e3
+
+
 def best_s(fn, iters: int = 3):
     """(last result, best wall time in s) of fn() over iters calls."""
     ts = []
@@ -111,52 +128,165 @@ def phase_build():
         host = ex.submit(timed, native.get_lib)
         print(f"[build] nvcc csrc/compact.cu (sm_90a): {nvcc.result():.2f} s; "
               f"host library (make -C csrc): {host.result():.2f} s")
+    for line in compact.build_log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print(f"[build] {line.strip()}")
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device time of one fn() call: reps calls captured in a CUDA graph,
+    replayed back to back (no host launch overhead between calls), after
+    a warm-up as in cuda_ms."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(g.replay, replays) / reps
+
+
+def check_compact(compact, label, bodies, sizes):
+    """The kernels against the plain version, output for output
+    (dense[:used] and meta = [used, row_offs, sz]); returns (used rows,
+    max abs byte error)."""
+    pd, pmeta = compact.compact_rows_plain(bodies, sizes)
+    u = int(pmeta[0])
+    kd, kmeta = compact.compact_rows_kernel(bodies, sizes)
+    torch.cuda.synchronize()
+    err = 0
+    for p, k in ((pmeta, kmeta), (pd[:u], kd[:u])):
+        if p.numel():
+            err = max(err, int((p.view(torch.uint8).to(torch.int32)
+                                - k.view(torch.uint8).to(torch.int32))
+                               .abs().max()))
+    if err or not (torch.equal(pmeta, kmeta) and torch.equal(pd[:u], kd[:u])):
+        raise AssertionError(f"compact_rows differs from its plain version "
+                             f"({label}): max_abs_err {err}")
+    print(f"[kernel] compact_rows vs plain ({label}): N={bodies.shape[0]}, "
+          f"OUTCAP={bodies.shape[1]}, used rows {u}; byte-equal on "
+          f"dense[:used] and meta")
+    return u, err
+
+
+def yardstick(compact, bodies, sizes):
+    """The index_select of a precomputed row map that computes the same
+    dense[:used]; returns a call of it, checked against the kernels."""
+    N, OUTCAP = bodies.shape
+    _, offs, used, _ = compact.compact_rows(bodies, sizes)
+    flat = compact._rows_view(bodies).reshape(-1, compact.ROWW)
+    r = torch.arange(int(used), device=bodies.device)
+    o64 = offs.to(torch.int64)
+    owner = torch.searchsorted(o64, r, right=True) - 1
+    row_map = owner * (OUTCAP // 512) + (r - o64[owner])
+    kd, _ = compact.compact_rows_kernel(bodies, sizes)
+    if not torch.equal(flat.index_select(0, row_map), kd[:len(r)]):
+        raise AssertionError("index_select yardstick disagrees")
+    return lambda: flat.index_select(0, row_map)
+
+
+def hbm_bound_ms(n, used_rows):
+    """Each input read once, each output written once: the used rows, the
+    sizes and the meta."""
+    nbytes = 2 * used_rows * 512 + 4 * n + 4 * (2 * n + 1)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def phase_kernel(out, sizes):
-    """compact_rows kernel against its plain version on the card."""
+    """compact_rows kernels against their plain version on the card, a
+    profiler window over one call on the encode output, and the times of
+    the kernels, the plain version, the index_select yardstick, the HBM
+    bound and the pinned d2h beside its measured link bound."""
+    from torch.profiler import ProfilerActivity, profile
+
     from aocl_compression_tpu_torch.ops import compact
-    rows = compact._rows_view(out)
+    dev = out.device
     edge = sizes.clone()
-    edge[0], edge[1], edge[-1] = 0, B, B
-    result = None
-    for label, sz_in in (("encode sizes", sizes), ("edge sizes", edge)):
-        sz, offs, used = compact._layout(sz_in, B)
-        plain = compact.compact_rows_plain(rows, offs, used)
-        kern = compact.compact_rows_kernel(rows, offs, sz)
+    edge[0], edge[1], edge[2], edge[-1] = 0, B, B + 4096, B
+    rng = np.random.default_rng(7)
+    nb = torch.from_numpy(rng.integers(0, 256, (16384, 512),
+                                       dtype=np.uint8)).to(dev)
+    ns = torch.from_numpy(rng.integers(0, 769, 16384).astype(np.int32)
+                          ).to(dev)
+    u, err = check_compact(compact, "encode sizes", out, sizes)
+    for label, bodies, sz_in in (
+            ("edge sizes", out, edge),
+            ("random sizes, N=16384 x OUTCAP=512", nb, ns)):
+        err = max(err, check_compact(compact, label, bodies, sz_in)[1])
+
+    # the main path's call: only the port's two kernels run on the device
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        compact.compact_rows(out, sizes)
         torch.cuda.synchronize()
-        u = int(used)
-        pb = plain[:u].view(torch.uint8).to(torch.int32)
-        kb = kern[:u].view(torch.uint8).to(torch.int32)
-        err = int((pb - kb).abs().max()) if u else 0
-        if err or not torch.equal(plain[:u], kern[:u]):
-            raise AssertionError(f"compact_rows differs from its plain "
-                                 f"version ({label}): max_abs_err {err}")
-        print(f"[kernel] compact_rows vs plain ({label}): used rows {u}, "
-              f"byte-equal on [0, {u * 512})")
-        if result is None:
-            # library yardstick: one index_select of the precomputed row map
-            flat = rows.reshape(-1, compact.ROWW)
-            r = torch.arange(u, device=out.device)
-            owner = torch.searchsorted(offs.to(torch.int64), r,
-                                       right=True) - 1
-            row_map = owner * (B // 512) + (r - offs.to(torch.int64)[owner])
-            lib = flat.index_select(0, row_map)
-            if not torch.equal(lib, kern[:u]):
-                raise AssertionError("index_select yardstick disagrees")
-            kernel_ms = cuda_ms(
-                lambda: compact.compact_rows_kernel(rows, offs, sz), 200)
-            plain_ms = cuda_ms(
-                lambda: compact.compact_rows_plain(rows, offs, used), 50)
-            library_ms = cuda_ms(lambda: flat.index_select(0, row_map), 200)
-            bound_ms = 2 * u * 512 / HBM_BYTES_PER_S * 1e3
-            print(f"[kernel] compact_rows at N={N}, OUTCAP={B}: kernel_ms "
-                  f"{kernel_ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
-                  f"(index_select) {library_ms:.4f}, bound_ms {bound_ms:.4f} "
-                  f"(2 x {u} rows x 512 B at 3.35 TB/s)")
-            result = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, library_ms=library_ms)
-    return result
+    dev_ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = {e.key: e.count for e in dev_ops}
+    print("[kernel] profiler window over one compact_rows: device ops "
+          "(count, device us): " + json.dumps(
+              {e.key: [e.count, e.self_device_time_total] for e in dev_ops}))
+    ours = ("compact_layout_kernel", "compact_copy_bulk_kernel")
+    if (sum(ops.values()) != 2
+            or not all(any(k in name for name in ops) for k in ours)
+            or not all(any(k in name for k in ours) for name in ops)):
+        raise AssertionError("compact_rows ran other device operations than "
+                             "its layout and copy kernels")
+
+    library = yardstick(compact, out, sizes)
+    times = {}
+    for _ in range(2):  # two turns, to see the spread within the run
+        times.setdefault("kernel", []).append(graph_ms(
+            lambda: compact.compact_rows_kernel(out, sizes)))
+        times.setdefault("library", []).append(graph_ms(library))
+        times.setdefault("eager", []).append(cuda_ms(
+            lambda: compact.compact_rows_kernel(out, sizes), 200))
+    plain_ms = graph_ms(lambda: compact.compact_rows_plain(out, sizes), 5, 5)
+    kernel_ms, library_ms, eager_ms = (
+        min(times[k]) for k in ("kernel", "library", "eager"))
+    nbytes, bound_ms = hbm_bound_ms(N, u)
+    print(f"[kernel] compact_rows at N={N}, OUTCAP={B} (2 launches, device "
+          f"time per call from CUDA-graph replay, min of 2 turns): "
+          f"kernel_ms {kernel_ms:.4f}, plain_ms (one turn) {plain_ms:.4f}, "
+          f"library_ms (index_select) {library_ms:.4f}, bound_ms "
+          f"{bound_ms:.4f} ({nbytes} B at 3.35 TB/s); eager back-to-back "
+          f"calls (CUDA events, host launch cost included) {eager_ms:.4f} "
+          f"ms per call")
+    print(f"[kernel] turns: " + ", ".join(
+        f"{k} {' / '.join(f'{t:.4f}' for t in v)}" for k, v in times.items()))
+
+    # the one-block scan at large N: 16384 sizes
+    big_u = int(compact.compact_rows(nb, ns)[2])
+    big_ms = graph_ms(lambda: compact.compact_rows_kernel(nb, ns))
+    big_lib_ms = graph_ms(yardstick(compact, nb, ns))
+    big_bytes, big_bound = hbm_bound_ms(nb.shape[0], big_u)
+    print(f"[kernel] compact_rows at N=16384, OUTCAP=512, random sizes, "
+          f"{big_u} used rows (CUDA-graph replay): kernel_ms {big_ms:.4f}, "
+          f"library_ms (index_select) {big_lib_ms:.4f}, bound_ms "
+          f"{big_bound:.4f} ({big_bytes} B at 3.35 TB/s)")
+
+    # d2h of dense[:used]: pinned against pageable, and the link's pinned
+    # rate on a 256 MB buffer as its bound
+    kd, _ = compact.compact_rows_kernel(out, sizes)
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    big_h = torch.empty(big.shape, dtype=torch.uint8, pin_memory=True)
+    link_ms = cuda_ms(lambda: big_h.copy_(big, non_blocking=True), 5)
+    link_gbs = big.numel() / link_ms / 1e6
+    used_d = kd[:u]
+    used_h = torch.empty(used_d.shape, dtype=used_d.dtype, pin_memory=True)
+    pinned_ms = cuda_ms(lambda: used_h.copy_(used_d, non_blocking=True), 50)
+    d2h_bound_ms = u * 512 / link_gbs / 1e6
+    # host clock, as the fetch sees it: copy + synchronise
+    pinned_wall_ms = wall_ms(lambda: compact._to_pinned(used_d))
+    pageable_wall_ms = wall_ms(lambda: used_d.cpu())
+    print(f"[kernel] d2h of dense[:used] ({u * 512} B): pinned "
+          f"{pinned_ms:.4f} ms (device events), bound {d2h_bound_ms:.4f} ms "
+          f"at the pinned link rate {link_gbs:.2f} GB/s (256 MB copy_); "
+          f"host clock with the sync, best of 20: pinned "
+          f"{pinned_wall_ms:.4f} ms, pageable {pageable_wall_ms:.4f} ms")
+    del big, big_h
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, library_ms=library_ms)
 
 
 def phase_main(data: bytes, blocks, arr, lens):
@@ -185,9 +315,9 @@ def phase_main(data: bytes, blocks, arr, lens):
             or hits.get("fetch_chunks_kernel") != 3:
         raise AssertionError("main path did not run the TORCH-tier encoder "
                              "and the KERNEL-tier compactor")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"kernel {name} was not launched")
+    if launches["compact_rows"] != 2 * 3:
+        raise AssertionError("compact_rows did not launch its two kernels "
+                             "once per compress call")
     d, d_s = best_s(lambda: act.decompress(h, c))
     if d != data:
         raise AssertionError("decompress did not return the input")
@@ -203,47 +333,46 @@ def phase_main(data: bytes, blocks, arr, lens):
     # per-stage device times of the same pipeline (API default config)
     G = lz4_device.grid_for_accel(2)
     depth, nw, subm = 4, 8, 128
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
     stage = {k: [] for k in ("find_matches", "grid_select", "emit_sorted",
-                             "compaction", "d2h", "host_stitch_rap")}
+                             "compaction", "meta_d2h", "d2h",
+                             "host_stitch_rap")}
     for _ in range(3):
-        ev[0].record()
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "find_matches", "grid_select", "emit_sorted",
+                        "compaction", "meta_d2h", "d2h_start", "d2h")}
+        ev["start"].record()
         mlen, moff, valid = lz4_device._find_matches(arr, lens, B,
                                                      depth=depth, nw=nw)
-        ev[1].record()
+        ev["find_matches"].record()
         sel, cpos, cml, coff = lz4_device._grid_select(
             mlen, moff, valid, B, G, subm=subm,
             match_cap=lz4_device._match_cap(G, nw, subm, 0))
-        ev[2].record()
+        ev["grid_select"].record()
         out, sizes, tails, flags = lz4_device._emit_sorted(
             arr, lens, sel, cpos, cml, coff, B, G)
-        ev[3].record()
-        dense, offs, used, sz = compact.compact_rows(out, sizes)
-        ev[4].record()
-        meta = torch.cat([used, offs, sz]).tolist()
-        ev[5].record()
-        buf = dense[:meta[0]].cpu().numpy().tobytes()
-        ev[6].record()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        o, s = meta[1:N + 1], meta[N + 1:]
-        bodies = [buf[o[i] * 512: o[i] * 512 + s[i]] for i in range(N)]
+        ev["emit_sorted"].record()
+        # the API's own fetch, with an event at each of its stage marks
+        bodies = compact._fetch_impl(out, sizes,
+                                     mark=lambda k: ev[k].record())
+        t1 = time.perf_counter()
         chunks, dlens = lz4_stitch.stitch_bodies(bodies, tails.tolist(),
                                                  blocks)
         offsets = np.cumsum([0] + [len(x) for x in chunks[:-1]])
         frame = native.rap_write(N, offsets + native.rap_frame_len(N),
                                  [len(x) for x in chunks], dlens)
         stream = frame + b"".join(chunks)
-        stage["host_stitch_rap"].append((time.perf_counter() - t0) * 1e3)
-        for k, key in enumerate(("find_matches", "grid_select",
-                                 "emit_sorted", "compaction")):
-            stage[key].append(ev[k].elapsed_time(ev[k + 1]))
-        stage["d2h"].append(ev[5].elapsed_time(ev[6]))
+        stage["host_stitch_rap"].append((time.perf_counter() - t1) * 1e3)
+        for a, b in (("start", "find_matches"),
+                     ("find_matches", "grid_select"),
+                     ("grid_select", "emit_sorted"),
+                     ("emit_sorted", "compaction"),
+                     ("compaction", "meta_d2h"), ("d2h_start", "d2h")):
+            stage[b].append(ev[a].elapsed_time(ev[b]))
     if not flags.any() and stream != c:
         raise AssertionError("staged pipeline stream differs from the API's")
     print("[main] stage times, ms (min of 3; device events, host clock for "
-          "the stitch): " + ", ".join(f"{k} {min(v):.3f}"
-                                      for k, v in stage.items()))
+          "the stitch and RAP after the fetch; the d2h copies are pinned): "
+          + ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items()))
     print(f"[main] flagged blocks (host re-encode): {int(flags.sum())}")
     return launches
 
