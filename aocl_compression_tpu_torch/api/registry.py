@@ -33,7 +33,8 @@ def _build_registry() -> None:
     if _codecs:
         return
     from ..codecs.lz4 import Lz4Codec
-    for codec in (Lz4Codec(),):
+    from ..codecs.lz4hc import Lz4hcCodec
+    for codec in (Lz4Codec(), Lz4hcCodec()):
         _codecs[codec.name] = codec
 
 

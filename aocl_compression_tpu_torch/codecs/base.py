@@ -32,6 +32,9 @@ class Codec:
     def destroy(self, handle: Handle) -> None:
         handle.state = None
 
+    def clamp_level(self, level: int) -> int:
+        return max(self.min_level, min(self.max_level, level))
+
     def compress_bound(self, n: int) -> int:
         raise NotImplementedError
 

@@ -2,13 +2,20 @@
 
 Tiers:
   HOST  — own C++ implementation (csrc/lz4_host.cpp) via ctypes.
-  TORCH — the sort-emit device encoder (ops/lz4_device.py) on the handle's
-          device, compacted by the CUDA kernel in ops/compact.py.
-Decode runs on the host C++ decoder (the JAX package's default route).
+  TORCH — the device encoder and decoder (ops/lz4_device.py) on the
+          handle's device, compacted by the CUDA kernel in ops/compact.py.
+RAP decode runs on the host C++ decoder unless device decode is enabled
+(utils.config.device_decode_enabled), the JAX package's default route.
 
 Level semantics: LZ4 fast has no levels in the reference; the handle's
 opt_var carries the acceleration factor (>=1), like LZ4_compress_fast.
 opt_var >= 2 selects the device encoder.
+
+The host routes of the device tiers are the JAX package's format routes,
+each taken through the dispatch registry so the audit names it: blocks
+over 64 KiB and chunks decoding to more than 64 KiB (16-bit position
+packing), blocks the sort-emit encoder flags (re-encoded in
+_device_bodies) and single-shot inputs under 1 KiB.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ from ..api.handle import Handle
 from ..parallel import container
 from ..runtime import native
 from ..utils import dispatch
-from ..utils.config import TIER_HOST, TIER_TORCH, get_config
+from ..utils.config import (TIER_HOST, TIER_TORCH, device_decode_enabled,
+                            get_config)
 from . import lz4_stitch
 from .base import Codec
 
@@ -64,14 +72,10 @@ class Lz4Codec(Codec):
             def compress(blocks):
                 return cb(blocks, accel, handle.device,
                           mem_limit=handle.mem_limit or None)
-        db = dispatch.resolve(self.name, "decompress_blocks", TIER_HOST)
-        bs = self._block_size(handle)
-
-        def decompress(chunks, dlens):
-            return db(chunks, dlens, bs, workers=handle.num_shards or None)
-
         return container.BlockCodecAdapter(
-            compress_blocks=compress, decompress_blocks=decompress)
+            compress_blocks=compress,
+            decompress_blocks=decompress_blocks_fn(handle,
+                                                   self._block_size(handle)))
 
     def compress(self, handle: Handle, data: bytes) -> bytes:
         if self._rap_enabled(handle):
@@ -93,6 +97,24 @@ class Lz4Codec(Codec):
         if out is not None:
             return out
         return _oneshot_decompress(data, expected_size)
+
+
+def decompress_blocks_fn(handle: Handle, block_size: int):
+    """RAP chunk decoder for lz4 and lz4hc streams: the device tier on the
+    handle's device when device decode is enabled, else the host tier."""
+    cap = handle.max_tier if device_decode_enabled() else TIER_HOST
+    db, tier = dispatch.resolve_with_tier("lz4", "decompress_blocks", cap,
+                                          handle.opt_off)
+    if tier == TIER_HOST:
+        return lambda chunks, dlens: db(chunks, dlens, block_size,
+                                        workers=handle.num_shards or None)
+    return lambda chunks, dlens: db(chunks, dlens, block_size, handle.device)
+
+
+def _host(codec: str, op: str):
+    """The host-tier variant of `codec`'s `op`, resolved so the audit
+    records the route."""
+    return dispatch.resolve(codec, op, TIER_HOST)
 
 
 def _oneshot_decompress(data: bytes, expected_size: Optional[int]) -> bytes:
@@ -131,6 +153,11 @@ def _compress_host(data: bytes, accel: int) -> bytes:
     return native.lz4_compress(data, accel)
 
 
+@dispatch.register("lz4", "compress_tail", TIER_HOST, "lz4_compress_tail_host")
+def _compress_tail_host(data: bytes, accel: int):
+    return native.lz4_compress_tail(data, accel)
+
+
 @dispatch.register("lz4", "compress_blocks", TIER_HOST,
                    "lz4_compress_blocks_host")
 def _compress_blocks_host(blocks: Sequence[bytes], accel: int, workers=None):
@@ -156,19 +183,36 @@ def _decompress_blocks_host(chunks: Sequence[bytes], dlens: Sequence[int],
 
 # --- device-tier variants (ops/lz4_device.py) --------------------------------
 
+def _device_bodies(blocks: Sequence[bytes], accel: int, device,
+                   mem_limit=None, **params):
+    """(bodies, tails) of `blocks` from the device encoder on `device`, one
+    batch per group of <= mem_limit input bytes. Blocks the sort-emit
+    encoder flags are re-encoded on the host tier (the JAX package's format
+    route), with the stitcher's contract: a body excludes the final
+    literal-only sequence."""
+    from ..ops import lz4_device
+    bodies, tails = [], []
+    for g in (_block_groups(blocks, mem_limit) if mem_limit else [blocks]):
+        bo, ta, flagged = lz4_device.encode_blocks(g, accel, device=device,
+                                                   **params)
+        for i in flagged:
+            stream, t = _host("lz4", "compress_tail")(g[i], max(accel, 1))
+            bo[i] = stream[:len(stream) - lz4_stitch.final_sequence_len(t)]
+            ta[i] = t
+        bodies.extend(bo)
+        tails.extend(ta)
+    return bodies, tails
+
+
 @dispatch.register("lz4", "compress_blocks", TIER_TORCH,
                    "lz4_compress_blocks_torch")
 def _compress_blocks_torch(blocks: Sequence[bytes], accel: int, device,
                            mem_limit=None):
     from ..ops import lz4_device
     if max(len(b) for b in blocks) > lz4_device.MAX_DEVICE_BLOCK:
-        return _compress_blocks_host(blocks, accel)  # 16-bit packing limit
-    bodies, tails = [], []
-    for g in (_block_groups(blocks, mem_limit) if mem_limit else [blocks]):
-        bo, ta = lz4_device.encode_blocks(g, accel, device=device)
-        bodies.extend(bo)
-        tails.extend(ta)
-    return lz4_stitch.stitch_bodies(bodies, tails, blocks)
+        return _host("lz4", "compress_blocks")(blocks, accel)  # 16-bit
+    return lz4_stitch.stitch_bodies(
+        *_device_bodies(blocks, accel, device, mem_limit), blocks)
 
 
 @dispatch.register("lz4", "compress", TIER_TORCH, "lz4_compress_torch")
@@ -178,8 +222,34 @@ def _compress_torch(data: bytes, accel: int, device) -> bytes:
     from ..ops import lz4_device
     bs = min(get_config().default_block_size, lz4_device.MAX_DEVICE_BLOCK)
     if len(data) < 1024:  # device dispatch overhead dwarfs tiny inputs
-        return native.lz4_compress(data, accel)
+        return _host("lz4", "compress")(data, accel)
     blocks = container.split_blocks(data, bs)
-    bodies, tails = lz4_device.encode_blocks(blocks, accel, device=device)
-    chunks, _ = lz4_stitch.stitch_bodies(bodies, tails, blocks)
+    chunks, _ = lz4_stitch.stitch_bodies(
+        *_device_bodies(blocks, accel, device), blocks)
     return b"".join(chunks)
+
+
+@dispatch.register("lz4", "decompress_blocks", TIER_TORCH,
+                   "lz4_decompress_blocks_torch")
+def _decompress_blocks_torch(chunks: Sequence[bytes], dlens: Sequence[int],
+                             block_size: int, device) -> List[bytes]:
+    """Device decode of RAP chunks. A chunk decoding to more than 64 KiB
+    (a stitched chunk carries its predecessor's tail literals) is past the
+    JAX package's 16-bit packing limit, kept here as the format route: it
+    goes to the host tier. The JAX package's tier sends the whole batch
+    there, this one only such chunks, with the same bytes out."""
+    from ..ops import lz4_device
+    on_dev = [d <= lz4_device.MAX_DEVICE_BLOCK for d in dlens]
+    out = [None] * len(chunks)
+    for route in (True, False):
+        idx = [i for i, ok in enumerate(on_dev) if ok == route]
+        if not idx:
+            continue
+        sub_c, sub_d = [chunks[i] for i in idx], [dlens[i] for i in idx]
+        res = (lz4_device.decode_blocks(sub_c, sub_d, block_size,
+                                        device=device) if route
+               else _host("lz4", "decompress_blocks")(sub_c, sub_d,
+                                                      block_size))
+        for i, r in zip(idx, res):
+            out[i] = r
+    return out

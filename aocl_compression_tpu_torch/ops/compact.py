@@ -203,15 +203,21 @@ def compact_rows(bodies: torch.Tensor, sizes: torch.Tensor):
     return dense, meta[1:N + 1], meta[:1], meta[N + 1:]
 
 
-def fetch_chunks(bodies: torch.Tensor, sizes: torch.Tensor) -> List[bytes]:
+def _no_mark(stage: str) -> None:
+    pass
+
+
+def fetch_chunks(bodies: torch.Tensor, sizes: torch.Tensor,
+                 mark=_no_mark) -> List[bytes]:
     """Compact on the device, fetch once, slice per-chunk byte strings.
 
     Routed through the dispatch registry so the compactor is an auditable
     tier (KERNEL mirrors the JAX package's fetch_chunks_pallas, TORCH its
-    fetch_chunks_xla); both run the kernels on a CUDA tensor."""
+    fetch_chunks_xla); both run the kernels on a CUDA tensor. mark is
+    _fetch_impl's stage hook."""
     from ..utils import dispatch
     fn = dispatch.resolve("container", "fetch_chunks", None)
-    return fn(bodies, sizes)
+    return fn(bodies, sizes, mark=mark)
 
 
 def _to_pinned(t: torch.Tensor) -> torch.Tensor:
@@ -219,10 +225,6 @@ def _to_pinned(t: torch.Tensor) -> torch.Tensor:
     caching host allocator reuses the block); the caller synchronises."""
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     return h.copy_(t, non_blocking=True)
-
-
-def _no_mark(stage: str) -> None:
-    pass
 
 
 def _fetch_impl(bodies: torch.Tensor, sizes: torch.Tensor,

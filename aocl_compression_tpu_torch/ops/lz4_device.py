@@ -1,11 +1,12 @@
-"""LZ4 block encoder as a batched tensor pipeline (tier TORCH).
+"""LZ4 block encoder and decoder as batched tensor pipelines (tier TORCH).
 
-The port of aocl_compression_tpu/ops/lz4_device.py's sort-emit encoder
-(G >= 2 tile-anchor parse). Every function takes a batch of blocks as
-(N, B) tensors on one device — the batch dimension is written out where
-the JAX package vmaps a per-block function — and returns exactly what the
-JAX function returns for each block: the pipelines are integer-only and
-every sort key is unique, so results are equal bit for bit.
+The port of aocl_compression_tpu/ops/lz4_device.py: the sort-emit encoder
+(G >= 2 tile-anchor parse), the exact-parse encoder (G = 0) and the
+decoder. Every function takes a batch of blocks as (N, B) tensors on one
+device — the batch dimension is written out where the JAX package vmaps a
+per-block function — and returns exactly what the JAX function returns
+for each block: the pipelines are integer-only and every sort key is
+unique, so results are equal bit for bit.
 
 Encode (per block, batched):
   1. hashing        — a u32 multiplicative hash of every position's 4-byte
@@ -24,12 +25,23 @@ Encode (per block, batched):
                       on the tile domain and one sort of (out_pos<<8 | byte)
                       materializes the stream.
 
+Exact parse (G = 0, accel <= 1; the lz4hc device tier): the serial greedy
+chain on the byte domain (_greedy_parse, marked by _chain_marks), the
+selected sequences squeezed to MAXSEQ entries (_select_sequences), and the
+fill + gather serializer (_emit) into rows of out_capacity(B) bytes.
+
+Decode (per chunk, batched): _token_scan computes for every byte position
+the token that would start there; _chain_marks marks the token chain from
+0; monotone fills give each output byte its token's fields; the
+back-references resolve by src = src[src] until no entry points into the
+output (_resolve).
+
 Word arithmetic: the window words are uint32 in the JAX package. Here they
 are int32 holding the same 32-bit pattern (equality and byte masks agree);
 the hash is computed in int64 with the multiplier split into 16-bit halves,
-so no product overflows.
-
-The exact G=0 parse and the device decoder are not ported yet.
+so no product overflows. Packed (hi << 16 | lo) fill values, which wrap as
+int32 in the JAX package (`pack + _NEG`), are int64 here: the same numbers
+without the wrap.
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+
+from .compact import _no_mark
 
 HASH_BITS = 15         # key packs (hash << 16) | pos into a positive int32
 NW = 16                # extension words carried with each sorted entry
@@ -248,16 +262,27 @@ def _floor_chain_nxt(cpos, cml, cvalid, aidx, shift, M, G, match_cap=0):
     return torch.where(cvalid, torch.where(use_floor, t0, t0 + 1), aidx + 1)
 
 
+def _mat_dtype(device) -> torch.dtype:
+    """Element type of the 0/1 reachability matrices: float16 on CUDA
+    (integer bmm does not exist there), float32 on the CPU. Products are
+    0/1 sums <= 128, exact in both."""
+    return torch.float16 if torch.device(device).type == "cuda" else \
+        torch.float32
+
+
+def _closure(A: torch.Tensor, rounds: int) -> torch.Tensor:
+    """The (S, K, K) 0/1 matrices A (of _mat_dtype) after `rounds`
+    squarings, each clamped back to 0/1: entry (r, c) is 1 iff c is
+    reachable from r in at most 2**rounds steps."""
+    for _ in range(rounds):
+        A = torch.bmm(A, A).clamp_(max=1)
+    return A
+
+
 def _reach_from_start(A: torch.Tensor, rounds: int) -> torch.Tensor:
     """Row 0 of the boolean closure of the (S, SUBM, SUBM) 0/1 matrices A
-    after `rounds` squarings. The products are 0/1 sums <= SUBM <= 128,
-    exact in float32 (CPU) and float16 (CUDA, where integer bmm does not
-    exist); each round clamps back to 0/1."""
-    dt = torch.float16 if A.is_cuda else torch.float32
-    A = A.to(dt)
-    for _ in range(rounds):
-        A = torch.clamp(torch.bmm(A, A), max=1)
-    return A[:, 0, :] > 0
+    after `rounds` squarings."""
+    return _closure(A.to(_mat_dtype(A.device)), rounds)[:, 0, :] > 0
 
 
 def _grid_select(mlen, moff, valid, B: int, G: int, subm: int = 128,
@@ -310,6 +335,138 @@ def _grid_select(mlen, moff, valid, B: int, G: int, subm: int = 128,
     rounds = int(np.ceil(np.log2(max(SUBM, 2))))
     sel = _reach_from_start(A, rounds).reshape(N, M) & cvalid
     return sel, cpos, cml, coff
+
+
+def _greedy_parse(mlen, valid, B: int):
+    """Exact serial-greedy selection: next[i] = i + (mlen if match else 1);
+    chain-from-0 membership by _chain_marks, as the decoder marks token
+    chains. Returns mark (N, B) bool."""
+    N = mlen.shape[0]
+    idx = _arange(B, mlen.device)
+    nxt = torch.clamp(idx + torch.where(valid, mlen, 1), max=B)
+    return _chain_marks(nxt, torch.full((N,), B, dtype=_I32,
+                                        device=mlen.device), B)
+
+
+def _grid_parse(mlen, moff, valid, B: int, G: int, MAXSEQ: int,
+                match_cap: int = 0):
+    """Tile-anchor parse (one sequence may start per G-byte tile),
+    compacted: the selected (pos, ml, off, nseq) in MAXSEQ entries. The
+    JAX package's _grid_parse repeats _grid_select's body at subm=128; here
+    it is that call followed by the compaction."""
+    sel, cpos, cml, coff = _grid_select(mlen, moff, valid, B, G, subm=128,
+                                        match_cap=match_cap)
+    M = B // G
+    return _compact_selected(sel, _arange(M, mlen.device).expand_as(sel),
+                             cpos, cml, coff, M, MAXSEQ)
+
+
+def _compact_selected(sel, order, pos, ml, off, DOM: int, MAXSEQ: int):
+    """Squeeze the selected sequences to the front, in `order`: the sort of
+    the unique keys (order, or order + DOM when not selected) carrying the
+    fields. More than MAXSEQ selected: the excess is dropped (its spans
+    become literals of the following sequence, still format-exact).
+    Returns (pos, ml, off) (N, MAXSEQ) and nseq (N,)."""
+    N = sel.shape[0]
+    dev = sel.device
+    selkey = torch.where(sel, order, order + DOM)
+    perm = torch.sort(selkey, dim=-1).indices
+    nseq = torch.clamp(sel.sum(dim=1, dtype=_I32), max=MAXSEQ)
+    real = _arange(MAXSEQ, dev) < nseq[:, None]
+    k = min(DOM, MAXSEQ)
+
+    def take(x, fill):
+        x = torch.gather(x, 1, perm[:, :k])
+        if MAXSEQ > DOM:
+            x = torch.cat([x, x.new_full((N, MAXSEQ - DOM), fill)], dim=1)
+        return torch.where(real, x, fill)
+
+    return take(pos, 0), take(ml, 0), take(off, 1), nseq
+
+
+def _select_sequences(mark, valid, mlen, moff, B: int, MAXSEQ: int):
+    """Compact the exact parse's selected byte positions to MAXSEQ
+    entries."""
+    idx = _arange(B, mark.device).expand_as(mark)
+    return _compact_selected(mark & valid, idx, idx, mlen, moff, B, MAXSEQ)
+
+
+def _fill(values, starts, OUTCAP: int, init):
+    """Segmented broadcast along the last axis: scatter-max `values` at
+    `starts`, dropping slots >= OUTCAP (callers send unused entries to
+    OUTCAP; starts are non-negative), then cummax-fill right. Valid iff
+    `values` strictly increase over the kept entries. Returns (N, OUTCAP)
+    of values' dtype."""
+    N = values.shape[0]
+    base = torch.full((N, OUTCAP + 1), init, dtype=values.dtype,
+                      device=values.device)
+    slot = torch.where((starts >= 0) & (starts < OUTCAP), starts, OUTCAP)
+    base.scatter_reduce_(1, slot.to(torch.int64), values, reduce="amax")
+    return torch.cummax(base[:, :OUTCAP], dim=1).values
+
+
+def _emit(data_u8, pos, ml, off, nseq, n, B: int, OUTCAP: int, MAXSEQ: int):
+    """Serialize the selected sequences into the LZ4 body (no final
+    sequence). Returns (out (N, OUTCAP) uint8, body (N,), tail (N,)).
+    Every output byte learns its sequence's fields from three monotone
+    fills; the literal bytes are gathered from the input."""
+    dev = pos.device
+    i64 = torch.int64
+    real = _arange(MAXSEQ, dev) < nseq[:, None]
+
+    ends = pos + ml
+    lit_start = torch.where(real, _shr(ends, 1, 0), 0)
+    lit = torch.where(real, pos - lit_start, 0)
+
+    # trailing literals after the last match (the stitcher's tail)
+    last = torch.clamp(nseq - 1, 0, MAXSEQ - 1).to(i64)[:, None]
+    has = nseq > 0
+    tail = n.to(_I32) - torch.where(has, torch.gather(ends, 1, last)[:, 0],
+                                    0)
+
+    seq_sz = torch.where(real, 3 + _nlx_of(lit) + lit + _nmx_of(ml), 0)
+    incl = torch.cumsum(seq_sz, dim=1, dtype=_I32)
+    body = torch.where(has, torch.gather(incl, 1, last)[:, 0], 0)
+    excl = incl - seq_sz
+
+    # --- monotone fills: every output byte learns its sequence's fields ----
+    starts = torch.where(real, excl, OUTCAP)
+    f_excl = _fill(excl, starts, OUTCAP, 0)
+    # pos < 2^16 strictly increases; lit_start likewise (ends are strict)
+    f_po = _fill(((pos.to(i64) << 16) | off) + _NEG, starts, OUTCAP, _NEG)
+    f_lm = _fill(((lit_start.to(i64) << 16) | ml) + _NEG, starts, OUTCAP,
+                 _NEG)
+
+    j = _arange(OUTCAP, dev)
+    delta = j - f_excl
+    po = f_po - _NEG
+    lm = f_lm - _NEG
+    pos_b = (po >> 16).to(_I32)
+    off_b = (po & 0xFFFF).to(_I32)
+    start_b = (lm >> 16).to(_I32)
+    ml_b = (lm & 0xFFFF).to(_I32)
+    lit_b = pos_b - start_b
+    nlx_b = _nlx_of(lit_b)
+
+    tok = (torch.clamp(lit_b, max=15) << 4) | torch.clamp(ml_b - MIN_MATCH,
+                                                          max=15)
+    lit_ext = torch.clamp(lit_b - 15 - 255 * (delta - 1), 0, 255)
+    lit_byte_pos = torch.clamp(start_b + delta - 1 - nlx_b, 0, B - 1)
+    lit_byte = torch.gather(data_u8, 1, lit_byte_pos.to(i64)).to(_I32)
+    ml_ext = torch.clamp(ml_b - 19 - 255 * (delta - (3 + nlx_b + lit_b)),
+                         0, 255)
+
+    o_lo = 1 + nlx_b + lit_b
+    byte = torch.where(
+        delta == 0, tok,
+        torch.where(delta <= nlx_b, lit_ext,
+                    torch.where(delta < o_lo, lit_byte,
+                                torch.where(delta == o_lo, off_b & 255,
+                                            torch.where(delta == o_lo + 1,
+                                                        off_b >> 8,
+                                                        ml_ext)))))
+    out = torch.where(j < body[:, None], byte, 0).to(torch.uint8)
+    return out, body, tail
 
 
 def _nlx_of(lit):
@@ -457,17 +614,25 @@ def _encode_block_v2(data_u8, n, B: int, G: int, depth: int = 2,
                      nw: int = NW, small_offsets: tuple = SMALL_OFFSETS,
                      subm: int = 128, lazy: int = 0,
                      hash_bits: int = HASH_BITS, nw_deep: int = 0,
-                     ext_passes: int = 0):
+                     ext_passes: int = 0, mark=_no_mark):
+    """The sort-emit encoder. mark(stage) is called on the host after each
+    stage is enqueued ("find_matches", "lazy", "grid_select",
+    "emit_sorted"); chip_smoke.py records a CUDA event at each."""
     mlen, moff, valid = _find_matches(data_u8, n, B, depth=depth, nw=nw,
                                       small_offsets=small_offsets,
                                       hash_bits=hash_bits, nw_deep=nw_deep,
                                       ext_passes=ext_passes)
+    mark("find_matches")
     for _ in range(lazy):
         valid = _lazy_demote(mlen, valid)
+    mark("lazy")
     sel, cpos, cml, coff = _grid_select(mlen, moff, valid, B, G, subm=subm,
                                         match_cap=_match_cap(G, nw, subm,
                                                              ext_passes))
-    return _emit_sorted(data_u8, n, sel, cpos, cml, coff, B, G)
+    mark("grid_select")
+    res = _emit_sorted(data_u8, n, sel, cpos, cml, coff, B, G)
+    mark("emit_sorted")
+    return res
 
 
 def _lazy_demote(mlen, valid):
@@ -485,27 +650,67 @@ def _match_cap(G: int, nw: int, subm: int, ext_passes: int) -> int:
     return min(88, subm * G) if ext_passes else 4 + 4 * nw
 
 
+def _encode_block(data_u8, n, B: int, OUTCAP: int, MAXSEQ: int, G: int = 0,
+                  depth: int = 2, nw: int = NW, lazy: int = 0,
+                  mark=_no_mark):
+    """The fill + gather encoder: exact greedy parse (G=0) or the compacted
+    tile parse (G >= 1), then _emit. Returns (out (N, OUTCAP), body,
+    tail). mark(stage) is called on the host after each stage is enqueued
+    ("find_matches", "lazy", then "greedy_parse" and "select_sequences" or
+    "grid_parse", then "emit")."""
+    mlen, moff, valid = _find_matches(data_u8, n, B, depth=depth, nw=nw)
+    mark("find_matches")
+    for _ in range(lazy):
+        valid = _lazy_demote(mlen, valid)
+    mark("lazy")
+    if G:
+        pos, ml, off, nseq = _grid_parse(mlen, moff, valid, B, G, MAXSEQ,
+                                         match_cap=4 + 4 * nw)
+        mark("grid_parse")
+    else:
+        marks = _greedy_parse(mlen, valid, B)
+        mark("greedy_parse")
+        pos, ml, off, nseq = _select_sequences(marks, valid, mlen, moff, B,
+                                               MAXSEQ)
+        mark("select_sequences")
+    res = _emit(data_u8, pos, ml, off, nseq, n, B, OUTCAP, MAXSEQ)
+    mark("emit")
+    return res
+
+
 def encoder_block_fn(B: int, G: int, depth: int = 2, nw: int = NW,
                      small_offsets: tuple = SMALL_OFFSETS, lazy: int = 0,
                      hash_bits: int = HASH_BITS, nw_deep: int = 0,
                      subm: int = 128, ext_passes: int = 0):
-    """Batched encode fn + output row width, with the JAX package's
-    default remap for the sort-emit path (G >= 2 with depth 2 runs depth 4,
-    nw 8). Returns (fn(data_u8 (N, B), n (N,)) -> (out, body, tail, flag),
-    out_width)."""
-    if G < 2:
-        raise NotImplementedError(
-            "the exact G=0 parse is not ported yet; use accel >= 2")
-    if depth == 2:
-        depth, nw = 4, 8
+    """Batched encode fn + output row width, as the JAX package resolves
+    them. G >= 2 runs the sort-emit path (depth 2 remapped to depth 4,
+    nw 8) into rows of B bytes; G < 2 runs _encode_block into rows of
+    out_capacity(B) bytes with no flags (small_offsets, hash_bits,
+    nw_deep, subm and ext_passes apply to the sort-emit path only).
+    Returns (fn(data_u8 (N, B), n (N,), mark=...) -> (out, body, tail,
+    flag), out_width); mark is the stage hook of the encoder it runs."""
+    if G >= 2:
+        if depth == 2:
+            depth, nw = 4, 8
 
-    def fn(data_u8, n):
-        return _encode_block_v2(data_u8, n, B=B, G=G, depth=depth, nw=nw,
-                                small_offsets=small_offsets, subm=subm,
-                                lazy=lazy, hash_bits=hash_bits,
-                                nw_deep=nw_deep, ext_passes=ext_passes)
+        def fn(data_u8, n, mark=_no_mark):
+            return _encode_block_v2(data_u8, n, B=B, G=G, depth=depth,
+                                    nw=nw, small_offsets=small_offsets,
+                                    subm=subm, lazy=lazy,
+                                    hash_bits=hash_bits, nw_deep=nw_deep,
+                                    ext_passes=ext_passes, mark=mark)
 
-    return fn, B
+        return fn, B
+    OUTCAP = out_capacity(B)
+    MAXSEQ = (B // max(G, MIN_MATCH)) + 2
+
+    def fn0(data_u8, n, mark=_no_mark):
+        out, body, tail = _encode_block(data_u8, n, B=B, OUTCAP=OUTCAP,
+                                        MAXSEQ=MAXSEQ, G=G, depth=depth,
+                                        nw=nw, lazy=lazy, mark=mark)
+        return out, body, tail, torch.zeros_like(body, dtype=torch.bool)
+
+    return fn0, OUTCAP
 
 
 def make_encoder(block_size: int, G: int = 0, depth: int = 2,
@@ -515,11 +720,12 @@ def make_encoder(block_size: int, G: int = 0, depth: int = 2,
     """Build the batched encoder for a given block size / parse grid.
 
     Signature: (blocks uint8[N, B], lens int32[N]) ->
-               (bodies uint8[N, B], body_sizes int32[N], tails int32[N],
+               (bodies uint8[N, W], body_sizes int32[N], tails int32[N],
                 flags bool[N])
-    on the device the inputs lie on. flags marks blocks the sort-emit
-    could not serialize (see _emit_sorted); callers re-encode those on the
-    host tier.
+    on the device the inputs lie on; W is B for the sort-emit path (G >= 2)
+    and out_capacity(B) for G < 2. flags marks blocks the sort-emit could
+    not serialize (see _emit_sorted); the codec tier re-encodes those on
+    the host. They are always False for G < 2.
     """
     fn, _ = encoder_block_fn(block_size, G, depth, nw, small_offsets, lazy,
                              hash_bits, nw_deep, subm, ext_passes)
@@ -554,9 +760,15 @@ def check_block_sizes(blocks, what: str = "encode"):
 
 
 def encode_blocks(blocks: Sequence[bytes], accel: int = 1, depth: int = 2,
-                  nw: int = NW, lazy: int = 0, *, device):
-    """Compress a list of blocks on `device`; returns (bodies, tails) where
-    bodies exclude the final literal-only sequence (stitcher input)."""
+                  nw: int = NW, lazy: int = 0, *, device, mark=_no_mark):
+    """Compress a list of blocks on `device`; returns (bodies, tails,
+    flagged) where bodies exclude the final literal-only sequence
+    (stitcher input). flagged lists the blocks the sort-emit encoder could
+    not serialize (a giant literal run closed by a tiny match: the header
+    exceeds the match's spare capacity); their bodies are None, and the
+    codec tier re-encodes them on the host. mark(stage) is called on the
+    host at "start", after the batch's upload is enqueued ("h2d"), and at
+    the encoder's and the fetch's stage marks."""
     from . import compact
     check_block_sizes(blocks)
     B = _bucket(max(len(b) for b in blocks))
@@ -570,20 +782,254 @@ def encode_blocks(blocks: Sequence[bytes], accel: int = 1, depth: int = 2,
     if G and G * 4 > B:  # tiny blocks: grid overhead isn't worth it
         G = 0
     enc = make_encoder(B, G, depth, nw, lazy=lazy)
-    out, sizes, tails, flags = enc(torch.from_numpy(arr).to(device),
-                                   torch.from_numpy(lens).to(device))
-    bodies = compact.fetch_chunks(out, sizes)
-    tails = tails.tolist()
-    flags = flags.cpu().numpy()
-    if flags.any():
-        # pathological blocks (giant literal run + tiny match: header
-        # exceeds the match's spare capacity) — re-encode on the host
-        # codec; same stitcher contract (body excludes the final
-        # literal-only sequence)
-        from ..codecs.lz4_stitch import final_sequence_len
-        from ..runtime import native
-        for i in np.nonzero(flags)[0]:
-            stream, t = native.lz4_compress_tail(blocks[i], max(accel, 1))
-            bodies[i] = stream[:len(stream) - final_sequence_len(t)]
-            tails[i] = t
-    return bodies, tails
+    mark("start")
+    arr_d = torch.from_numpy(arr).to(device)
+    lens_d = torch.from_numpy(lens).to(device)
+    mark("h2d")
+    out, sizes, tails, flags = enc(arr_d, lens_d, mark=mark)
+    bodies = compact.fetch_chunks(out, sizes, mark=mark)
+    flagged = np.nonzero(flags.cpu().numpy())[0].tolist()
+    for i in flagged:
+        bodies[i] = None
+    return bodies, tails.tolist(), flagged
+
+
+# =============================================================================
+# Decoder
+# =============================================================================
+
+SEG = 128  # chain-marking segment (one reachability matrix per segment)
+
+
+def _token_scan(chunk_u8, clen, C: int):
+    """For every byte position p of each chunk: if a token started at p,
+    its (next token position, produced output bytes, literal length,
+    literal start, offset), each (N, C). 255-extension runs come from a
+    reverse next-non-255 scan."""
+    N = chunk_u8.shape[0]
+    dev = chunk_u8.device
+    d = chunk_u8.to(_I32)
+    pad = torch.cat([d, d.new_zeros(N, 8)], dim=1)
+    idx = _arange(C, dev).expand(N, C)
+
+    non255 = torch.where(d != 255, idx, 2 * C)
+    nxt_non255 = torch.clamp(_rev_cummin(non255), max=C)
+
+    def at(t, x):
+        return torch.gather(t, 1, x.to(torch.int64))
+
+    def ext_at(x):
+        """(count of 255 bytes, terminating byte value) for a run at x."""
+        cnt = torch.clamp(at(nxt_non255, torch.clamp(x, 0, C - 1)) - x, 0, C)
+        return cnt, at(pad, torch.clamp(x + cnt, 0, C + 7))
+
+    lit0 = d >> 4
+    cnt_l, term_l = ext_at(idx + 1)
+    lit = torch.where(lit0 < 15, lit0, 15 + 255 * cnt_l + term_l)
+    a = idx + torch.where(lit0 < 15, 1, 2 + cnt_l)   # literal bytes start
+    b = a + lit                                       # offset field
+    is_final = b >= clen.to(_I32)[:, None]
+
+    ml0 = d & 15
+    cnt_m, term_m = ext_at(b + 2)
+    ml = torch.where(ml0 < 15, ml0 + MIN_MATCH, 19 + 255 * cnt_m + term_m)
+    nxt = torch.where(is_final, C,
+                      torch.where(ml0 < 15, b + 2, b + 3 + cnt_m))
+    nxt = torch.clamp(nxt, 0, C)
+    produced = torch.where(is_final, lit, lit + ml)
+    offs = (at(pad, torch.clamp(b, 0, C + 7))
+            | (at(pad, torch.clamp(b + 1, 0, C + 7)) << 8))
+    return nxt, produced, lit, a, offs
+
+
+def _chain_marks(nxt, clen, C: int):
+    """Mark the positions visited by the chain p -> nxt[p] from 0, for each
+    row of nxt (N, C) (nxt[p] > p, <= C); positions >= clen are unmarked.
+
+    Two levels, as in the JAX package: 128-byte segments become (128, 128)
+    reachability matrices (7 squarings); the last position reachable from
+    each entry gives the segment's exit, exit[p] = nxt[last]. The JAX
+    package threads the chain through the segment entries with a serial
+    scan over the S segments. Here the exit function F (which always
+    leaves the segment, so the chain visits at most one position per
+    segment) is composed by pointer doubling: with F^(2^j) tabled, the
+    orbit start, F(start), ..., F^(S-1)(start) doubles in length per
+    round, in log2(S) rounds. Each visited position is its segment's
+    entry, and the entry's matrix row is the segment's marks.
+    """
+    N = nxt.shape[0]
+    dev = nxt.device
+    i64 = torch.int64
+    S = C // SEG
+    idx = _arange(C, dev)
+    segbase = (idx // SEG) * SEG
+    jloc = nxt - segbase
+    # the in-segment edge p -> nxt[p], else none (the identity's 1 at p)
+    tgt = torch.where((jloc >= 0) & (jloc < SEG), jloc, idx - segbase)
+    R = torch.zeros((N * S, SEG, SEG), dtype=_mat_dtype(dev), device=dev)
+    R.scatter_(2, tgt.reshape(N * S, SEG, 1).to(i64), 1)
+    R.diagonal(dim1=1, dim2=2).fill_(1)
+    R = _closure(R, 7)
+
+    # last in-segment reachable position per entry -> its nxt is the exit
+    cols = torch.arange(SEG, dtype=R.dtype, device=dev)
+    last = torch.amax(R * cols, dim=2).to(i64)          # (N*S, SEG)
+    exit_ = torch.gather(nxt.reshape(N * S, SEG).to(i64), 1, last)
+
+    # orbit of the start under F (F(C) = C ends a chain)
+    F = torch.cat([exit_.reshape(N, C), torch.full((N, 1), C, dtype=i64,
+                                                   device=dev)], dim=1)
+    orbit = torch.where(clen > 0, 0, C).to(i64)[:, None]
+    rounds = max(S, 2).bit_length() - 1
+    for r in range(rounds):
+        orbit = torch.cat([orbit, torch.gather(F, 1, orbit)], dim=1)
+        if r + 1 < rounds:
+            F = torch.gather(F, 1, F)
+
+    # entry of each segment (-1: not visited); position C lands in column S
+    seg = orbit // SEG
+    entries = torch.full((N, S + 1), -1, dtype=i64, device=dev)
+    entries.scatter_(1, seg, orbit - seg * SEG)
+    entries = entries[:, :S].reshape(N * S)
+    rows = R[torch.arange(N * S, device=dev), torch.clamp(entries, 0)]
+    mark = (rows > 0) & (entries >= 0)[:, None]
+    return mark.reshape(N, C) & (idx < clen.to(_I32)[:, None])
+
+
+def _decode_sources(chunk_u8, clen, dlen, C: int, B: int, mark=_no_mark):
+    """Token scan, chain marks and the output map of each chunk."""
+    nxt, produced, lit, a, offs = _token_scan(chunk_u8, clen, C)
+    mark("token_scan")
+    marks = _chain_marks(nxt, clen, C)
+    mark("chain_marks")
+    src = _output_map(marks, produced, lit, a, offs, dlen, B)
+    mark("output_map")
+    return src
+
+
+def _output_map(mark, produced, lit, a, offs, dlen, B: int):
+    """src (N, B) int32 from the marked tokens: src >= 0 is an earlier
+    output byte (a back-reference), src < 0 is the chunk byte -src - 1 (a
+    literal)."""
+    N = mark.shape[0]
+    dev = mark.device
+
+    # --- output spans: monotone fills over the output domain ----------------
+    prod_m = torch.where(mark, produced, 0)
+    out_start = torch.cumsum(prod_m, dim=1, dtype=_I32) - prod_m
+    emitting = mark & (produced > 0)
+    tstart = torch.where(emitting, out_start, B)      # B slots drop
+
+    f_ts = _fill(out_start, tstart, B, 0)             # token's output start
+    # strictly monotone high bits: out_start of tokens emitting > 0 bytes
+    f_off = _fill(((out_start.to(torch.int64) << 16) | (offs & 0xFFFF))
+                  + _NEG, tstart, B, _NEG) - _NEG
+    f_mstart = _fill(out_start + lit, tstart, B, 0)   # match part begins
+    f_a = _fill(a, tstart, B, 0)                      # literal source base
+
+    o = _arange(B, dev).expand(N, B)
+    is_lit = o < f_mstart
+    # offset 0 only occurs in corrupt streams; clamped to 1 so src always
+    # points backwards and the resolve loop ends. An overlapping match
+    # (off < ml) is a periodic fill: each byte is sourced from the first
+    # period, (o - mstart) mod off (floor mod, as jnp.remainder).
+    offv = torch.clamp(f_off & 0xFFFF, min=1).to(_I32)
+    src = torch.where(is_lit, -(f_a + (o - f_ts)) - 1,
+                      (f_mstart - offv) + torch.remainder(o - f_mstart, offv))
+    return torch.where(o < dlen.to(_I32)[:, None], src, -1)
+
+
+def _resolve(src, mark=_no_mark):
+    """Follow back-references, src = src[src], until no entry is >= 0 (one
+    host check per pass; mark("resolve_pass") after each). Returns (src,
+    passes)."""
+    B = src.shape[1]
+    passes = 0
+    while bool((src >= 0).any()):
+        gathered = torch.gather(src, 1, torch.clamp(src, 0, B - 1).to(
+            torch.int64))
+        src = torch.where(src >= 0, gathered, src)
+        passes += 1
+        mark("resolve_pass")
+    return src, passes
+
+
+def _gather_output(chunk_u8, src, dlen):
+    """Output bytes (N, B) uint8 from the resolved literal sources."""
+    N, C = chunk_u8.shape
+    B = src.shape[1]
+    pad = torch.cat([chunk_u8, chunk_u8.new_zeros(N, 1)], dim=1)
+    out = torch.gather(pad, 1, torch.clamp(-src - 1, 0, C).to(torch.int64))
+    o = _arange(B, src.device)
+    return torch.where(o < dlen.to(_I32)[:, None], out, 0)
+
+
+def _decode_block(chunk_u8, clen, dlen, C: int, B: int, mark=_no_mark):
+    """Decode a batch of chunks into (N, B) uint8. mark(stage) is called
+    on the host after each stage is enqueued ("token_scan", "chain_marks",
+    "output_map", "resolve_pass" per resolve pass, "resolve",
+    "gather_output")."""
+    src, _ = _resolve(_decode_sources(chunk_u8, clen, dlen, C, B, mark),
+                      mark)
+    mark("resolve")
+    out = _gather_output(chunk_u8, src, dlen)
+    mark("gather_output")
+    return out
+
+
+def make_decoder(chunk_cap: int, block_size: int):
+    """Build the batched decoder.
+
+    Signature: (chunks uint8[N, C], clens int32[N], dlens int32[N],
+                mark=...) -> uint8[N, B]
+    on the device the inputs lie on; mark is _decode_block's stage hook.
+    """
+    C, B = chunk_cap, block_size
+
+    def decode(chunks, clens, dlens, mark=_no_mark):
+        return _decode_block(chunks, clens, dlens, C=C, B=B, mark=mark)
+
+    return decode
+
+
+def decode_blocks(chunks: Sequence[bytes], dlens: Sequence[int],
+                  block_size: int, *, device, mark=_no_mark) -> List[bytes]:
+    """Decompress a list of chunk regions on `device` (each decoding to
+    <= 64 KiB). mark(stage) is called on the host, per device batch, at
+    "start" (before the padded batch is built), after its upload is
+    enqueued ("h2d_batch"), and at the decoder's and the fetch's stage
+    marks."""
+    from . import compact
+    if not chunks:
+        return []
+    if max(dlens) > MAX_DEVICE_BLOCK:
+        raise ValueError(
+            "device decode: decompressed block exceeds the 64 KiB limit "
+            "(16-bit offset packing); use the host tier")
+    C = _bucket(max((len(c) for c in chunks), default=1))
+    # cap the reachability matrices (S matrices of 128^2 per chunk): split
+    # oversized batches, at the JAX package's batch bound
+    max_n = max(1, (32 << 20) // C)
+    if len(chunks) > max_n:
+        out = []
+        for i in range(0, len(chunks), max_n):
+            out.extend(decode_blocks(chunks[i:i + max_n], dlens[i:i + max_n],
+                                     block_size, device=device, mark=mark))
+        return out
+    B = _bucket(max(max(dlens), block_size))
+    N = len(chunks)
+    mark("start")
+    arr = np.zeros((N, C), dtype=np.uint8)
+    clens = np.zeros(N, dtype=np.int32)
+    for i, c in enumerate(chunks):
+        arr[i, :len(c)] = np.frombuffer(c, dtype=np.uint8)
+        clens[i] = len(c)
+    dl = torch.tensor(list(dlens), dtype=_I32, device=device)
+    arr_d = torch.from_numpy(arr).to(device)
+    clens_d = torch.from_numpy(clens).to(device)
+    mark("h2d_batch")
+    out = make_decoder(C, B)(arr_d, clens_d, dl, mark=mark)
+    if B % compact.ROWB == 0:
+        return compact.fetch_chunks(out, dl, mark=mark)
+    out_np = out.cpu().numpy()
+    return [out_np[i, :dlens[i]].tobytes() for i in range(N)]

@@ -1,7 +1,7 @@
 """ctypes bindings to the shared host runtime (csrc/libaocl_tpu_host.so).
 
 The port binds the same C++ library as the JAX package, restricted to the
-symbols its codecs use: the LZ4 block codec and the RAP container
+symbols its codecs use: the LZ4 and LZ4HC block codecs and the RAP container
 writer/parser. The library is built with ``make -C csrc`` on first use
 when it is missing or older than its sources.
 """
@@ -32,6 +32,9 @@ _SIGNATURES = [
     ("atpu_lz4_compress_bound", _i64, [_i64]),
     ("atpu_lz4_compress", _i64, [_u8p, _i64, _u8p, _i64, _i32]),
     ("atpu_lz4_compress_tail", _i64,
+     [_u8p, _i64, _u8p, _i64, _i32, ctypes.POINTER(_i64)]),
+    ("atpu_lz4hc_compress", _i64, [_u8p, _i64, _u8p, _i64, _i32]),
+    ("atpu_lz4hc_compress_tail", _i64,
      [_u8p, _i64, _u8p, _i64, _i32, ctypes.POINTER(_i64)]),
     ("atpu_lz4_decompress", _i64, [_u8p, _i64, _u8p, _i64]),
     ("atpu_lz4_decompressed_size", _i64, [_u8p, _i64]),
@@ -136,10 +139,43 @@ def lz4_compress_tail(data: bytes, accel: int = 1) -> tuple:
     return _finish_out(ref, n), tail.value
 
 
+def lz4hc_compress(data: bytes, level: int = 9) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = lib.atpu_lz4_compress_bound(len(data))
+    ref, dp = _alloc_out(cap)
+    n = lib.atpu_lz4hc_compress(_as_u8p(src), len(data), dp, cap, level)
+    if n < 0:
+        raise ValueError("lz4hc host compress failed")
+    return _finish_out(ref, n)
+
+
+def lz4hc_compress_tail(data: bytes, level: int = 9) -> tuple:
+    """lz4hc_compress plus the final sequence's literal count (stitcher
+    input), as lz4_compress_tail."""
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = lib.atpu_lz4_compress_bound(len(data))
+    ref, dp = _alloc_out(cap)
+    tail = _i64(0)
+    n = lib.atpu_lz4hc_compress_tail(_as_u8p(src), len(data), dp,
+                                     cap, level, ctypes.byref(tail))
+    if n < 0:
+        raise ValueError("lz4hc host compress failed")
+    return _finish_out(ref, n), tail.value
+
+
+# Bytes past dstCap in every decode buffer: the library's short-match fast
+# path (csrc/lz4_host.cpp:375-384) writes 20 bytes without checking the
+# room left, so a valid stream whose long literal run brings the output
+# near its end followed by a short match writes up to 16 bytes past dstCap.
+_DECODE_SLACK = 64
+
+
 def lz4_decompress(data: bytes, expected_size: int) -> bytes:
     lib = get_lib()
     src = _tobuf(data)
-    ref, dp = _alloc_out(expected_size)
+    ref, dp = _alloc_out(expected_size + _DECODE_SLACK)
     n = lib.atpu_lz4_decompress(_as_u8p(src), len(data), dp, expected_size)
     if n < 0:
         raise ValueError("lz4 host decompress failed (corrupt stream?)")

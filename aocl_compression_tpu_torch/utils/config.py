@@ -13,6 +13,8 @@ Env vars, read like the JAX package reads them:
     names (SSE2, AVX, AVX2, AVX512) are accepted and mapped.
   AOCL_DISABLE_OPT — any value forces tier 0.
   AOCL_ENABLE_LOG ∈ {ERR, INFO, DEBUG, TRACE} — log level.
+  AOCL_DEVICE_DECODE — a value other than "0" or "" routes RAP decode to
+    the device tier (overrides FrameworkConfig.device_decode).
 """
 
 from __future__ import annotations
@@ -56,6 +58,15 @@ class FrameworkConfig:
     # Default block size; the RAP chunking invariant is chunk >= codec
     # search window.
     default_block_size: int = 64 * 1024
+    # Device decode opt-in, as in the JAX package: RAP decode runs on the
+    # host C++ decoder unless this is set (or env AOCL_DEVICE_DECODE=1).
+    device_decode: bool = False
+
+
+def device_decode_enabled() -> bool:
+    if os.environ.get("AOCL_DEVICE_DECODE") is not None:
+        return os.environ["AOCL_DEVICE_DECODE"] not in ("0", "")
+    return _config.device_decode
 
 
 _config = FrameworkConfig()

@@ -10,12 +10,15 @@ non-zero before the last line:
      together;
   3. every kernel against its plain PyTorch version, output for output:
      compact_rows (layout scan + bulk copy) at the main path's shapes
-     (N=256 chunks of OUTCAP=65536, sizes from a real encode), at edge
-     sizes (0, OUTCAP, > OUTCAP) and at N=16384 x OUTCAP=512 with random
-     sizes; a profiler window showing that one call runs only the port's
-     two kernels; kernel / plain / library times (device time from
-     CUDA-graph replay) at the main path's shape and at N=16384 x 512, the
-     HBM bound, and the pinned d2h of the used rows beside its measured
+     (N=256 chunks of OUTCAP=65536, sizes from a real encode), at the
+     exact encoder's rows (N=256 x OUTCAP=66048, 129 rows of 512 B, sizes
+     from a real lz4hc level-9 encode), at the decoder's full rows (N=256 x
+     65536, every row used), at edge sizes (0, OUTCAP, > OUTCAP) and at
+     N=16384 x OUTCAP=512 with random sizes; a profiler window showing that
+     one call runs only the port's two kernels; kernel / plain / library
+     times (device time from CUDA-graph replay) at the main path's shape,
+     kernel / library times at the other shapes, each beside its HBM
+     bound, and the pinned d2h of the used rows beside its measured
      link-rate bound;
   4. the main path: setup("lz4", opt_var=2, block_size=65536) compress and
      decompress of a 16.8 MB corpus, exact round trip, serial decode after
@@ -24,8 +27,17 @@ non-zero before the last line:
      taken inside the API's own fetch;
   5. the bench encoder config (G=8, depth 5, nw 5, subm 64, lazy 1,
      ext_passes 5) on the same corpus;
-  6. one JSON line listing every ported kernel;
-  7. last line: {"ok": true, "device": {...}}.
+  6. lz4hc: setup("lz4hc", opt_var=2, block_size=65536) at the default
+     level 9 (the exact-parse encoder, G=0) on the same corpus: audit,
+     launches, exact round trip, serial decode after skip_rap_frame, ratio
+     beside the host tier's at level 9, compress MB/s, peak memory and
+     per-stage device times; the launches of one _chain_marks call;
+  7. device decode (set_config(device_decode=True)) of the lz4 and lz4hc
+     streams: exact, audited, MB/s beside the host decoder's, peak memory,
+     the chunks on each route, resolve passes and per-stage device times;
+  8. one JSON line listing every ported kernel, its launches summed over
+     the paths of phases 4, 6 and 7;
+  9. last line: {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -192,11 +204,24 @@ def hbm_bound_ms(n, used_rows):
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def phase_kernel(out, sizes):
+def shape_times(compact, label, bodies, sizes):
+    """Kernel and index_select times (CUDA-graph replay) at one shape,
+    beside its HBM bound."""
+    u = int(compact.compact_rows(bodies, sizes)[2])
+    k_ms = graph_ms(lambda: compact.compact_rows_kernel(bodies, sizes))
+    lib_ms = graph_ms(yardstick(compact, bodies, sizes))
+    nbytes, bound = hbm_bound_ms(bodies.shape[0], u)
+    print(f"[kernel] compact_rows at {label}, {u} used rows (CUDA-graph "
+          f"replay): kernel_ms {k_ms:.4f}, library_ms (index_select) "
+          f"{lib_ms:.4f}, bound_ms {bound:.4f} ({nbytes} B at 3.35 TB/s)")
+
+
+def phase_kernel(out, sizes, slices):
     """compact_rows kernels against their plain version on the card, a
     profiler window over one call on the encode output, and the times of
     the kernels, the plain version, the index_select yardstick, the HBM
-    bound and the pinned d2h beside its measured link bound."""
+    bound and the pinned d2h beside its measured link bound. `slices`
+    maps a label to the (bodies, sizes) of another path's call."""
     from torch.profiler import ProfilerActivity, profile
 
     from aocl_compression_tpu_torch.ops import compact
@@ -209,9 +234,10 @@ def phase_kernel(out, sizes):
     ns = torch.from_numpy(rng.integers(0, 769, 16384).astype(np.int32)
                           ).to(dev)
     u, err = check_compact(compact, "encode sizes", out, sizes)
-    for label, bodies, sz_in in (
-            ("edge sizes", out, edge),
-            ("random sizes, N=16384 x OUTCAP=512", nb, ns)):
+    for label, (bodies, sz_in) in (
+            [("edge sizes", (out, edge)),
+             ("random sizes, N=16384 x OUTCAP=512", (nb, ns))]
+            + list(slices.items())):
         err = max(err, check_compact(compact, label, bodies, sz_in)[1])
 
     # the main path's call: only the port's two kernels run on the device
@@ -255,15 +281,11 @@ def phase_kernel(out, sizes):
     print(f"[kernel] turns: " + ", ".join(
         f"{k} {' / '.join(f'{t:.4f}' for t in v)}" for k, v in times.items()))
 
-    # the one-block scan at large N: 16384 sizes
-    big_u = int(compact.compact_rows(nb, ns)[2])
-    big_ms = graph_ms(lambda: compact.compact_rows_kernel(nb, ns))
-    big_lib_ms = graph_ms(yardstick(compact, nb, ns))
-    big_bytes, big_bound = hbm_bound_ms(nb.shape[0], big_u)
-    print(f"[kernel] compact_rows at N=16384, OUTCAP=512, random sizes, "
-          f"{big_u} used rows (CUDA-graph replay): kernel_ms {big_ms:.4f}, "
-          f"library_ms (index_select) {big_lib_ms:.4f}, bound_ms "
-          f"{big_bound:.4f} ({big_bytes} B at 3.35 TB/s)")
+    # the one-block scan at large N (16384 sizes), and the other paths'
+    # shapes
+    shape_times(compact, "N=16384, OUTCAP=512, random sizes", nb, ns)
+    for label, (bodies, sz_in) in slices.items():
+        shape_times(compact, label, bodies, sz_in)
 
     # d2h of dense[:used]: pinned against pageable, and the link's pinned
     # rate on a 256 MB buffer as its bound
@@ -289,33 +311,19 @@ def phase_kernel(out, sizes):
                 bound_ms=bound_ms, library_ms=library_ms)
 
 
-def phase_main(data: bytes, blocks, arr, lens):
+def phase_main(data: bytes, blocks, dev):
     import aocl_compression_tpu_torch as act
-    from aocl_compression_tpu_torch.codecs import lz4_stitch
-    from aocl_compression_tpu_torch.ops import compact, lz4_device
+    from aocl_compression_tpu_torch.codecs.lz4 import _device_bodies
     from aocl_compression_tpu_torch.parallel import container
     from aocl_compression_tpu_torch.runtime import native
-    from aocl_compression_tpu_torch.utils import dispatch
 
     mb = len(data) / 1e6
     h = act.setup("lz4", opt_var=2, block_size=B, measure_stats=True)
-    act.compress(h, data)  # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    dispatch.enable_audit(True)
-    compact.launches = 0
-    c, c_s = best_s(lambda: act.compress(h, data))
-    launches = {"compact_rows": compact.launches}
-    hits = dispatch.audit_hits()
-    dispatch.enable_audit(False)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[main] dispatch audit: {json.dumps(hits, sort_keys=True)}")
-    print(f"[main] kernel launches during 3 compress calls: "
-          f"{json.dumps(launches)}")
-    if hits.get("lz4_compress_blocks_torch") != 3 \
-            or hits.get("fetch_chunks_kernel") != 3:
-        raise AssertionError("main path did not run the TORCH-tier encoder "
-                             "and the KERNEL-tier compactor")
-    if launches["compact_rows"] != 2 * 3:
+    c, c_s, n_launch, peak_gb = run_path(
+        "main", lambda: act.compress(h, data),
+        ("lz4_compress_blocks_torch", "fetch_chunks_kernel"))
+    launches = {"compact_rows": n_launch}
+    if n_launch != 2 * 3:
         raise AssertionError("compact_rows did not launch its two kernels "
                              "once per compress call")
     d, d_s = best_s(lambda: act.decompress(h, c))
@@ -330,51 +338,19 @@ def phase_main(data: bytes, blocks, arr, lens):
           f"3); round trip exact, serial decode exact; peak device memory "
           f"{peak_gb:.2f} GB")
 
-    # per-stage device times of the same pipeline (API default config)
-    G = lz4_device.grid_for_accel(2)
-    depth, nw, subm = 4, 8, 128
-    stage = {k: [] for k in ("find_matches", "grid_select", "emit_sorted",
-                             "compaction", "meta_d2h", "d2h",
-                             "host_stitch_rap")}
-    for _ in range(3):
-        ev = {k: torch.cuda.Event(enable_timing=True)
-              for k in ("start", "find_matches", "grid_select", "emit_sorted",
-                        "compaction", "meta_d2h", "d2h_start", "d2h")}
-        ev["start"].record()
-        mlen, moff, valid = lz4_device._find_matches(arr, lens, B,
-                                                     depth=depth, nw=nw)
-        ev["find_matches"].record()
-        sel, cpos, cml, coff = lz4_device._grid_select(
-            mlen, moff, valid, B, G, subm=subm,
-            match_cap=lz4_device._match_cap(G, nw, subm, 0))
-        ev["grid_select"].record()
-        out, sizes, tails, flags = lz4_device._emit_sorted(
-            arr, lens, sel, cpos, cml, coff, B, G)
-        ev["emit_sorted"].record()
-        # the API's own fetch, with an event at each of its stage marks
-        bodies = compact._fetch_impl(out, sizes,
-                                     mark=lambda k: ev[k].record())
-        t1 = time.perf_counter()
-        chunks, dlens = lz4_stitch.stitch_bodies(bodies, tails.tolist(),
-                                                 blocks)
-        offsets = np.cumsum([0] + [len(x) for x in chunks[:-1]])
-        frame = native.rap_write(N, offsets + native.rap_frame_len(N),
-                                 [len(x) for x in chunks], dlens)
-        stream = frame + b"".join(chunks)
-        stage["host_stitch_rap"].append((time.perf_counter() - t1) * 1e3)
-        for a, b in (("start", "find_matches"),
-                     ("find_matches", "grid_select"),
-                     ("grid_select", "emit_sorted"),
-                     ("emit_sorted", "compaction"),
-                     ("compaction", "meta_d2h"), ("d2h_start", "d2h")):
-            stage[b].append(ev[a].elapsed_time(ev[b]))
-    if not flags.any() and stream != c:
-        raise AssertionError("staged pipeline stream differs from the API's")
+    # per-stage device times of the device tier the API runs (its default
+    # config), through the encoder's and the fetch's stage marks
+    stage, stream = staged(
+        lambda rec: _device_bodies(blocks, 2, dev, mark=rec),
+        ("start", "h2d", "find_matches", "lazy", "grid_select",
+         "emit_sorted", "compaction", "meta_d2h"), blocks)
+    if stream != c:
+        raise AssertionError("staged device tier stream differs from the "
+                             "API's")
     print("[main] stage times, ms (min of 3; device events, host clock for "
           "the stitch and RAP after the fetch; the d2h copies are pinned): "
           + ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items()))
-    print(f"[main] flagged blocks (host re-encode): {int(flags.sum())}")
-    return launches
+    return launches, c
 
 
 def phase_bench(data: bytes, blocks, arr, lens):
@@ -405,6 +381,214 @@ def phase_bench(data: bytes, blocks, arr, lens):
           f"stitched stream decodes exactly")
 
 
+def stitch_rap(bodies, tails, blocks):
+    """The RAP stream the API writes from the encoder's bodies and tails."""
+    from aocl_compression_tpu_torch.codecs import lz4_stitch
+    from aocl_compression_tpu_torch.runtime import native
+    chunks, dlens = lz4_stitch.stitch_bodies(bodies, tails, blocks)
+    offsets = np.cumsum([0] + [len(x) for x in chunks[:-1]])
+    frame = native.rap_write(len(chunks), offsets + native.rap_frame_len(
+        len(chunks)), [len(x) for x in chunks], dlens)
+    return frame + b"".join(chunks)
+
+
+def staged(run, names, blocks, calls=3):
+    """run(rec) `calls` times, rec(stage) recording a CUDA event at each
+    stage mark of the code it drives: ({stage: [ms, ...]}, the RAP stream
+    of the last call's bodies and tails). Each stage is timed from the mark
+    before it; d2h from d2h_start; host_stitch_rap on the host clock."""
+    stage = {k: [] for k in names[1:] + ("d2h", "host_stitch_rap")}
+    for _ in range(calls):
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in names + ("d2h_start", "d2h")}
+        bodies, tails = run(lambda k: ev[k].record())
+        t1 = time.perf_counter()
+        stream = stitch_rap(bodies, tails, blocks)
+        stage["host_stitch_rap"].append((time.perf_counter() - t1) * 1e3)
+        for a, b in zip(names, names[1:]):
+            stage[b].append(ev[a].elapsed_time(ev[b]))
+        stage["d2h"].append(ev["d2h_start"].elapsed_time(ev["d2h"]))
+    return stage, stream
+
+
+def run_path(label, fn, hits_want, calls=3):
+    """fn() `calls` times with the audit on and the kernel counts set to 0
+    just before: (last result, best s, compact_rows launches, peak device
+    GB). Fails unless every audit name in hits_want was hit `calls` times."""
+    from aocl_compression_tpu_torch.ops import compact
+    from aocl_compression_tpu_torch.utils import dispatch
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.enable_audit(True)
+    compact.launches = 0
+    try:
+        res, t = best_s(fn, calls)
+        launches = compact.launches
+        hits = dispatch.audit_hits()
+    finally:
+        dispatch.enable_audit(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
+          f"compact_rows launches in {calls} calls: {launches}")
+    for name in hits_want:
+        if hits.get(name) != calls:
+            raise AssertionError(f"{label}: {name} was not hit once per call")
+    return res, t, launches, peak_gb
+
+
+def phase_lz4hc(data: bytes, blocks, arr, lens):
+    """setup("lz4hc", opt_var=2) at the default level 9: the exact-parse
+    device encoder (G=0, depth 11, nw 32, lazy 1)."""
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch.codecs.lz4 import _device_bodies
+    from aocl_compression_tpu_torch.codecs.lz4hc import device_params
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.parallel import container
+    from aocl_compression_tpu_torch.runtime import native
+
+    mb = len(data) / 1e6
+    h = act.setup("lz4hc", opt_var=2, block_size=B)
+    c, c_s, launches, peak_gb = run_path(
+        "lz4hc", lambda: act.compress(h, data),
+        ("lz4hc_compress_blocks_torch", "fetch_chunks_kernel"))
+    if launches != 2 * 3:
+        raise AssertionError("lz4hc: compact_rows did not launch its two "
+                             "kernels once per compress call")
+    if act.decompress(h, c) != data:
+        raise AssertionError("lz4hc: decompress did not return the input")
+    if native.lz4_decompress(container.skip_rap_frame(c), len(data)) != data:
+        raise AssertionError("lz4hc: serial decode after skip_rap_frame "
+                             "failed")
+    hh = act.setup("lz4hc", level=9, block_size=B)
+    ch, ch_s = best_s(lambda: act.compress(hh, data), 1)
+    print(f"[lz4hc] setup('lz4hc', opt_var=2, block_size={B}) level "
+          f"{h.level} on {h.device}: {len(data)} B -> {len(c)} B, ratio "
+          f"{len(data) / len(c):.4f} (host tier at level 9: {len(ch)} B, "
+          f"ratio {len(data) / len(ch):.4f}, {mb / ch_s:.2f} MB/s, one "
+          f"call); compress {mb / c_s:.2f} MB/s (best of 3, "
+          f"{c_s * 1e3:.2f} ms); round trip exact, serial decode exact; "
+          f"peak device memory {peak_gb:.2f} GB")
+
+    depth, nw, lazy = device_params(9)
+    stage, stream = staged(
+        lambda rec: _device_bodies(blocks, 1, arr.device, depth=depth, nw=nw,
+                                   lazy=lazy, mark=rec),
+        ("start", "h2d", "find_matches", "lazy", "greedy_parse",
+         "select_sequences", "emit", "compaction", "meta_d2h"), blocks)
+    if stream != c:
+        raise AssertionError("lz4hc: staged device tier stream differs from "
+                             "the API's")
+    print("[lz4hc] stage times, ms (min of 3; device events, host clock for "
+          "the stitch and RAP after the fetch): "
+          + ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items()))
+
+    # mem_limit bounds the device batches (here two halves of the corpus)
+    # and leaves the stream as it is
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hm = act.setup("lz4hc", opt_var=2, block_size=B, mem_limit=len(data) // 2)
+    if act.compress(hm, data) != c:
+        raise AssertionError("lz4hc: mem_limit changed the stream")
+    print(f"[lz4hc] mem_limit={len(data) // 2} (two device batches): same "
+          f"stream; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the launches of one _greedy_parse call (the exact parse's marking:
+    # its chain step and _chain_marks) on the level-9 candidates
+    from torch.profiler import ProfilerActivity, profile
+    mlen, _, valid = ld._find_matches(arr, lens, B, depth=depth, nw=nw)
+    for _ in range(lazy):
+        valid = ld._lazy_demote(mlen, valid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ld._greedy_parse(mlen, valid, B)
+        torch.cuda.synchronize()
+    dev_ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[lz4hc] one _greedy_parse call (N={N}, C={B}): "
+          f"{sum(e.count for e in dev_ops)} device launches, "
+          f"{sum(e.self_device_time_total for e in dev_ops) / 1e3:.3f} ms "
+          f"device time (profiler)")
+    return launches, c, peak_gb
+
+
+def phase_decode(data: bytes, streams, dev):
+    """Device decode (set_config(device_decode=True)) of the lz4 and lz4hc
+    streams through the API, beside the host decoder; then the stages of
+    one device batch of the lz4hc stream."""
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.runtime import native
+
+    mb = len(data) / 1e6
+    total = 0
+    for method, c in streams.items():
+        h = act.setup(method, opt_var=2, block_size=B)
+        act.set_config(device_decode=True)
+        try:
+            d, d_s, launches, peak_gb = run_path(
+                f"decode {method}", lambda: act.decompress(h, c),
+                ("lz4_decompress_blocks_torch", "fetch_chunks_kernel"))
+        finally:
+            act.set_config(device_decode=False)
+        if d != data:
+            raise AssertionError(f"device decode of the {method} stream did "
+                                 f"not return the input")
+        if launches != 2 * 3:
+            raise AssertionError(f"decode {method}: compact_rows did not "
+                                 f"launch its two kernels once per call")
+        total += launches
+        _, h_s = best_s(lambda: act.decompress(h, c))
+        dlens = native.rap_parse(c)[2]
+        on_dev = dlens <= ld.MAX_DEVICE_BLOCK
+        print(f"[decode] {method} stream ({len(c)} B): device decode "
+              f"{mb / d_s:.2f} MB/s (best of 3, {d_s * 1e3:.2f} ms), host "
+              f"decoder {mb / h_s:.2f} MB/s (best of 3); exact; chunks on "
+              f"the device {int(on_dev.sum())} of {len(dlens)} "
+              f"({int(dlens[on_dev].sum())} of {int(dlens.sum())} B), the "
+              f"rest (> 64 KiB) on the host tier; peak device memory "
+              f"{peak_gb:.2f} GB")
+
+    # stages of the device batch of the lz4hc stream, through
+    # decode_blocks's stage marks; checked against the host decoder
+    c = streams["lz4hc"]
+    offs, lens_, dlens = native.rap_parse(c)
+    sel = [i for i, d in enumerate(dlens) if d <= ld.MAX_DEVICE_BLOCK]
+    chunks = [c[int(offs[i]):int(offs[i]) + int(lens_[i])] for i in sel]
+    dl = [int(dlens[i]) for i in sel]
+    names = ("start", "h2d_batch", "token_scan", "chain_marks",
+             "output_map", "resolve", "gather_output", "compaction",
+             "meta_d2h")
+    stage = {k: [] for k in names[1:] + ("d2h",)}
+    for _ in range(3):
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in names + ("d2h_start", "d2h")}
+        passes = []
+
+        def rec(k):
+            if k == "resolve_pass":
+                passes.append(k)
+            else:
+                ev[k].record()
+
+        got = ld.decode_blocks(chunks, dl, B, device=dev, mark=rec)
+        for a_, b_ in zip(names, names[1:]):
+            stage[b_].append(ev[a_].elapsed_time(ev[b_]))
+        stage["d2h"].append(ev["d2h_start"].elapsed_time(ev["d2h"]))
+    if got != [native.lz4_decompress(x, d) for x, d in zip(chunks, dl)]:
+        raise AssertionError("decode: device batch differs from the host "
+                             "decoder")
+    C = ld._bucket(max(len(x) for x in chunks))
+    print(f"[decode] lz4hc device batch: N={len(chunks)}, C={C}, B="
+          f"{ld._bucket(max(max(dl), B))}, resolve passes {len(passes)}; "
+          f"stage times, ms (min of 3; device events; h2d_batch spans the "
+          f"host's batch build and the upload): "
+          + ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items()))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -423,11 +607,24 @@ def main():
         np.frombuffer(data, dtype=np.uint8).reshape(N, B).copy()).to(dev)
     lens = torch.full((N,), B, dtype=torch.int32, device=dev)
 
-    # a real encode at the main path's config gives the kernel its sizes
+    # real encodes at the main path's config and at lz4hc level 9 give the
+    # kernel its sizes; the decoder's rows are the corpus itself
     out, sizes, _, _ = lz4_device.make_encoder(B, 4)(arr, lens)
-    kernel = phase_kernel(out, sizes)
-    launches = phase_main(data, blocks, arr, lens)
+    hc_out, hc_sizes, _, _ = lz4_device.make_encoder(B, 0, 11, 32, lazy=1)(
+        arr, lens)
+    kernel = phase_kernel(out, sizes, {
+        f"the lz4hc encode, N={N} x OUTCAP={hc_out.shape[1]}":
+            (hc_out, hc_sizes),
+        f"the decoder's full rows, N={N} x {B}": (arr, lens)})
+    del hc_out, hc_sizes
+    launches, c_lz4 = phase_main(data, blocks, dev)
     phase_bench(data, blocks, arr, lens)
+    hc_launches, c_hc, _ = phase_lz4hc(data, blocks, arr, lens)
+    dec_launches = phase_decode(data, {"lz4": c_lz4, "lz4hc": c_hc}, dev)
+    launches["compact_rows"] += hc_launches + dec_launches
+    print(f"[paths] compact_rows launches: lz4 "
+          f"{launches['compact_rows'] - hc_launches - dec_launches}, lz4hc "
+          f"{hc_launches}, device decode {dec_launches}")
 
     kernels = [dict(name="compact_rows", route="cuda",
                     source="aocl_compression_tpu_torch/csrc/compact.cu",

@@ -48,12 +48,18 @@ def _cases():
     bodies, _ = _mk(64, 1024, seed=4)
     cases.append((64, 1024, bodies, np.zeros(64, np.int32)))
     cases.append((64, 1024, bodies, np.full(64, 1024, np.int32)))
+    # the exact encoder's rows (out_capacity(65536) = 129 rows of 512 B)
+    # and the decoder's full 64 KiB rows
+    cases.append((6, 66048, *_mk_edges(6, 66048, seed=8)))
+    bodies, _ = _mk(3, 65536, seed=9)
+    cases.append((3, 65536, bodies, np.array([65536, 65536, 1000],
+                                             np.int32)))
     return cases
 
 
 CASES = _cases()
 IDS = ["4x512", "8x1024", "3x2048", "zero_full", "3000x512_edges",
-       "all_zero", "all_full"]
+       "all_zero", "all_full", "6x66048_edges", "3x65536_decode"]
 
 
 def _jax_compact(N, OUTCAP, bodies, sizes):
@@ -184,6 +190,19 @@ CUDA_SHAPES = [(1, 512), (255, 512), (257, 512), (16384, 512),
 def test_kernel_matches_plain_edges(cuda_device, shape):
     N, OUTCAP = shape
     _kernel_vs_plain(cuda_device, *_mk_edges(N, OUTCAP, seed=N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 66048), (256, 65536)],
+                         ids=["256x66048_exact_encode", "256x65536_decode"])
+def test_kernel_matches_plain_slice_shapes(cuda_device, shape):
+    """The exact encoder's 129-row chunks (sizes at the row and clamp
+    edges) and the decoder's full 64 KiB rows (every row used)."""
+    N, OUTCAP = shape
+    bodies, sizes = _mk_edges(N, OUTCAP, seed=OUTCAP)
+    if OUTCAP == 65536:
+        sizes = np.full(N, OUTCAP, np.int32)
+    _kernel_vs_plain(cuda_device, bodies, sizes)
 
 
 @pytest.mark.cuda

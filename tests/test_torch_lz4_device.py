@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from aocl_compression_tpu.ops import lz4_device as jdev
+from aocl_compression_tpu_torch.codecs import lz4 as tlz4
 from aocl_compression_tpu_torch.codecs import lz4_stitch
 from aocl_compression_tpu_torch.ops import lz4_device as tdev
 from aocl_compression_tpu_torch.runtime import native
@@ -203,9 +204,13 @@ def test_flagged_block_streams_match():
                                **CONFIGS["api_default"][1])(
         _t(arr), _t(lens))[3]
     _eq(tflags, flags)
-    # after the host re-encode of the flagged block, the streams agree
+    # the device batch reports the flagged block and leaves its body out
+    tb, tt, flagged = tdev.encode_blocks(blocks, 2, device="cpu")
+    assert flagged == np.nonzero(flags)[0].tolist()
+    assert all((b is None) == (i in flagged) for i, b in enumerate(tb))
+    # after the codec tier's host re-encode of it, the streams agree
     jb, jt = jdev.encode_blocks(blocks, 2)
-    tb, tt = tdev.encode_blocks(blocks, 2, device="cpu")
+    tb, tt = tlz4._device_bodies(blocks, 2, "cpu")
     assert tb == jb and tt == jt
     chunks, dlens = lz4_stitch.stitch_bodies(tb, tt, blocks)
     total = b"".join(blocks)
@@ -214,8 +219,11 @@ def test_flagged_block_streams_match():
 
 
 def test_exact_parse_not_ported():
-    with pytest.raises(NotImplementedError):
-        tdev.encoder_block_fn(B, 0)
+    """The exact parse (G < 2) is ported now: its rows are out_capacity(B)
+    wide, the sort-emit path's B wide, as in the JAX package
+    (tests/test_torch_lz4_exact.py holds its parity)."""
+    assert tdev.encoder_block_fn(B, 0)[1] == jdev.encoder_block_fn(B, 0)[1]
+    assert tdev.encoder_block_fn(B, 0)[1] == tdev.out_capacity(B)
     _, width = tdev.encoder_block_fn(B, 4)
     assert width == B
 
