@@ -34,7 +34,9 @@ def _build_registry() -> None:
         return
     from ..codecs.lz4 import Lz4Codec
     from ..codecs.lz4hc import Lz4hcCodec
-    for codec in (Lz4Codec(), Lz4hcCodec()):
+    from ..codecs.snappy import SnappyCodec
+    from ..codecs.zlib_bzip2_lzma import ZlibCodec
+    for codec in (Lz4Codec(), Lz4hcCodec(), SnappyCodec(), ZlibCodec()):
         _codecs[codec.name] = codec
 
 

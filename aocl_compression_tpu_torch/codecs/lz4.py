@@ -111,12 +111,6 @@ def decompress_blocks_fn(handle: Handle, block_size: int):
     return lambda chunks, dlens: db(chunks, dlens, block_size, handle.device)
 
 
-def _host(codec: str, op: str):
-    """The host-tier variant of `codec`'s `op`, resolved so the audit
-    records the route."""
-    return dispatch.resolve(codec, op, TIER_HOST)
-
-
 def _oneshot_decompress(data: bytes, expected_size: Optional[int]) -> bytes:
     """Serial-safe decode. The block format has no size header; when the
     caller does not know the size, a structural token scan (C++, no byte
@@ -127,23 +121,6 @@ def _oneshot_decompress(data: bytes, expected_size: Optional[int]) -> bytes:
     if size < 0 or size > _MAX_ONESHOT_GROW:
         raise ValueError("lz4 decompress: corrupt stream or oversized")
     return native.lz4_decompress(data, size)
-
-
-def _block_groups(blocks, mem_limit):
-    """Split blocks into groups of <= mem_limit input bytes per dispatch
-    (the reference's memLimit semantics, codec_bench -m). Applied BELOW
-    the stitcher: groups only bound device batch sizes, never the stream
-    layout."""
-    groups, cur, size = [], [], 0
-    for b in blocks:
-        if cur and size + len(b) > mem_limit:
-            groups.append(cur)
-            cur, size = [], 0
-        cur.append(b)
-        size += len(b)
-    if cur:
-        groups.append(cur)
-    return groups
 
 
 # --- host-tier variants -------------------------------------------------------
@@ -192,11 +169,12 @@ def _device_bodies(blocks: Sequence[bytes], accel: int, device,
     literal-only sequence."""
     from ..ops import lz4_device
     bodies, tails = [], []
-    for g in (_block_groups(blocks, mem_limit) if mem_limit else [blocks]):
+    for g in container.block_groups(blocks, mem_limit):
         bo, ta, flagged = lz4_device.encode_blocks(g, accel, device=device,
                                                    **params)
         for i in flagged:
-            stream, t = _host("lz4", "compress_tail")(g[i], max(accel, 1))
+            stream, t = dispatch.resolve_host("lz4", "compress_tail")(
+                g[i], max(accel, 1))
             bo[i] = stream[:len(stream) - lz4_stitch.final_sequence_len(t)]
             ta[i] = t
         bodies.extend(bo)
@@ -210,7 +188,8 @@ def _compress_blocks_torch(blocks: Sequence[bytes], accel: int, device,
                            mem_limit=None):
     from ..ops import lz4_device
     if max(len(b) for b in blocks) > lz4_device.MAX_DEVICE_BLOCK:
-        return _host("lz4", "compress_blocks")(blocks, accel)  # 16-bit
+        # 16-bit position packing
+        return dispatch.resolve_host("lz4", "compress_blocks")(blocks, accel)
     return lz4_stitch.stitch_bodies(
         *_device_bodies(blocks, accel, device, mem_limit), blocks)
 
@@ -222,7 +201,7 @@ def _compress_torch(data: bytes, accel: int, device) -> bytes:
     from ..ops import lz4_device
     bs = min(get_config().default_block_size, lz4_device.MAX_DEVICE_BLOCK)
     if len(data) < 1024:  # device dispatch overhead dwarfs tiny inputs
-        return _host("lz4", "compress")(data, accel)
+        return dispatch.resolve_host("lz4", "compress")(data, accel)
     blocks = container.split_blocks(data, bs)
     chunks, _ = lz4_stitch.stitch_bodies(
         *_device_bodies(blocks, accel, device), blocks)
@@ -248,8 +227,8 @@ def _decompress_blocks_torch(chunks: Sequence[bytes], dlens: Sequence[int],
         sub_c, sub_d = [chunks[i] for i in idx], [dlens[i] for i in idx]
         res = (lz4_device.decode_blocks(sub_c, sub_d, block_size,
                                         device=device) if route
-               else _host("lz4", "decompress_blocks")(sub_c, sub_d,
-                                                      block_size))
+               else dispatch.resolve_host("lz4", "decompress_blocks")(
+                   sub_c, sub_d, block_size))
         for i, r in zip(idx, res):
             out[i] = r
     return out

@@ -24,8 +24,7 @@ from ..utils import dispatch
 from ..utils.config import TIER_HOST, TIER_TORCH, get_config
 from . import lz4_stitch
 from .base import Codec
-from .lz4 import (_device_bodies, _host, _oneshot_decompress,
-                  decompress_blocks_fn)
+from .lz4 import _device_bodies, _oneshot_decompress, decompress_blocks_fn
 
 
 class Lz4hcCodec(Codec):
@@ -119,7 +118,9 @@ def _compress_blocks_torch(blocks: Sequence[bytes], level: int, device,
     input bytes."""
     from ..ops import lz4_device
     if max(len(b) for b in blocks) > lz4_device.MAX_DEVICE_BLOCK:
-        return _host("lz4hc", "compress_blocks")(blocks, level)  # 16-bit
+        # 16-bit position packing
+        return dispatch.resolve_host("lz4hc", "compress_blocks")(blocks,
+                                                                 level)
     depth, nw, lazy = device_params(level)
     return lz4_stitch.stitch_bodies(
         *_device_bodies(blocks, 1, device, mem_limit, depth=depth, nw=nw,

@@ -108,8 +108,11 @@ def _rows_view(bodies_u8: torch.Tensor) -> torch.Tensor:
     N, OUTCAP = bodies_u8.shape
     if OUTCAP % ROWB:
         raise ValueError("encoder OUTCAP must be 512-byte aligned")
-    return bodies_u8.contiguous().view(torch.int32).reshape(
-        N, OUTCAP // ROWB, ROWW)
+    if bodies_u8.stride() != (OUTCAP, 1):
+        # dense rows; contiguous() would keep a (1, OUTCAP) slice of a
+        # wider buffer as it is (a size-1 dimension's stride is ignored)
+        bodies_u8 = bodies_u8.clone(memory_format=torch.contiguous_format)
+    return bodies_u8.view(torch.int32).reshape(N, OUTCAP // ROWB, ROWW)
 
 
 def compact_rows_plain(bodies: torch.Tensor, sizes: torch.Tensor):

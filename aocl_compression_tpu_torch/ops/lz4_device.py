@@ -759,6 +759,29 @@ def check_block_sizes(blocks, what: str = "encode"):
             f"host tier or block_size <= {MAX_DEVICE_BLOCK}")
 
 
+def upload_blocks(blocks: Sequence[bytes], accel: int, device, mark):
+    """The padded batch every encoder takes: (blocks (N, B) uint8, lens
+    (N,) int32) on `device`, the bucket B and the parse grid G of
+    `accel` (0 for tiny blocks, where the grid's overhead isn't worth it).
+    mark(stage) is called at "start" and after the upload ("h2d")."""
+    check_block_sizes(blocks)
+    B = _bucket(max(len(b) for b in blocks))
+    N = len(blocks)
+    arr = np.zeros((N, B), dtype=np.uint8)
+    lens = np.zeros(N, dtype=np.int32)
+    for i, b in enumerate(blocks):
+        arr[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+        lens[i] = len(b)
+    G = grid_for_accel(accel)
+    if G and G * 4 > B:
+        G = 0
+    mark("start")
+    arr_d = torch.from_numpy(arr).to(device)
+    lens_d = torch.from_numpy(lens).to(device)
+    mark("h2d")
+    return arr_d, lens_d, B, G
+
+
 def encode_blocks(blocks: Sequence[bytes], accel: int = 1, depth: int = 2,
                   nw: int = NW, lazy: int = 0, *, device, mark=_no_mark):
     """Compress a list of blocks on `device`; returns (bodies, tails,
@@ -770,23 +793,9 @@ def encode_blocks(blocks: Sequence[bytes], accel: int = 1, depth: int = 2,
     host at "start", after the batch's upload is enqueued ("h2d"), and at
     the encoder's and the fetch's stage marks."""
     from . import compact
-    check_block_sizes(blocks)
-    B = _bucket(max(len(b) for b in blocks))
-    N = len(blocks)
-    arr = np.zeros((N, B), dtype=np.uint8)
-    lens = np.zeros(N, dtype=np.int32)
-    for i, b in enumerate(blocks):
-        arr[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
-        lens[i] = len(b)
-    G = grid_for_accel(accel)
-    if G and G * 4 > B:  # tiny blocks: grid overhead isn't worth it
-        G = 0
-    enc = make_encoder(B, G, depth, nw, lazy=lazy)
-    mark("start")
-    arr_d = torch.from_numpy(arr).to(device)
-    lens_d = torch.from_numpy(lens).to(device)
-    mark("h2d")
-    out, sizes, tails, flags = enc(arr_d, lens_d, mark=mark)
+    arr_d, lens_d, B, G = upload_blocks(blocks, accel, device, mark)
+    out, sizes, tails, flags = make_encoder(B, G, depth, nw, lazy=lazy)(
+        arr_d, lens_d, mark=mark)
     bodies = compact.fetch_chunks(out, sizes, mark=mark)
     flagged = np.nonzero(flags.cpu().numpy())[0].tolist()
     for i in flagged:
@@ -999,6 +1008,17 @@ def decode_blocks(chunks: Sequence[bytes], dlens: Sequence[int],
     "start" (before the padded batch is built), after its upload is
     enqueued ("h2d_batch"), and at the decoder's and the fetch's stage
     marks."""
+    return decode_batches(make_decoder, chunks, dlens, block_size,
+                          device=device, mark=mark)
+
+
+def decode_batches(make_dec, chunks: Sequence[bytes], dlens: Sequence[int],
+                   block_size: int, *, device, mark=_no_mark) -> List[bytes]:
+    """The host side of a device decoder (this module's, or the snappy
+    decoder's): pad the chunks into (N, C) batches of at most
+    (32 << 20) // C chunks, the JAX package's bound on the reachability
+    matrices (S matrices of 128^2 per chunk), decode each with
+    make_dec(C, B) and fetch the rows through the compaction."""
     from . import compact
     if not chunks:
         return []
@@ -1007,14 +1027,13 @@ def decode_blocks(chunks: Sequence[bytes], dlens: Sequence[int],
             "device decode: decompressed block exceeds the 64 KiB limit "
             "(16-bit offset packing); use the host tier")
     C = _bucket(max((len(c) for c in chunks), default=1))
-    # cap the reachability matrices (S matrices of 128^2 per chunk): split
-    # oversized batches, at the JAX package's batch bound
     max_n = max(1, (32 << 20) // C)
     if len(chunks) > max_n:
         out = []
         for i in range(0, len(chunks), max_n):
-            out.extend(decode_blocks(chunks[i:i + max_n], dlens[i:i + max_n],
-                                     block_size, device=device, mark=mark))
+            out.extend(decode_batches(make_dec, chunks[i:i + max_n],
+                                      dlens[i:i + max_n], block_size,
+                                      device=device, mark=mark))
         return out
     B = _bucket(max(max(dlens), block_size))
     N = len(chunks)
@@ -1028,7 +1047,7 @@ def decode_blocks(chunks: Sequence[bytes], dlens: Sequence[int],
     arr_d = torch.from_numpy(arr).to(device)
     clens_d = torch.from_numpy(clens).to(device)
     mark("h2d_batch")
-    out = make_decoder(C, B)(arr_d, clens_d, dl, mark=mark)
+    out = make_dec(C, B)(arr_d, clens_d, dl, mark=mark)
     if B % compact.ROWB == 0:
         return compact.fetch_chunks(out, dl, mark=mark)
     out_np = out.cpu().numpy()

@@ -51,6 +51,26 @@ def split_blocks(data: bytes, block_size: int) -> List[bytes]:
     return [data[i:i + block_size] for i in range(0, len(data), block_size)]
 
 
+def block_groups(blocks: Sequence[bytes],
+                 mem_limit: Optional[int]) -> List[List[bytes]]:
+    """Split blocks into groups of <= mem_limit input bytes, one device
+    batch each (the reference's memLimit semantics, codec_bench -m); one
+    group when mem_limit is unset. A group only bounds a device batch, never
+    the stream layout (the device tiers apply it below the stitcher)."""
+    if not mem_limit:
+        return [list(blocks)]
+    groups, cur, size = [], [], 0
+    for b in blocks:
+        if cur and size + len(b) > mem_limit:
+            groups.append(cur)
+            cur, size = [], 0
+        cur.append(b)
+        size += len(b)
+    if cur:
+        groups.append(cur)
+    return groups
+
+
 def st_fallback(handle, device_opted: bool) -> bool:
     """The reference's single-thread fallback (threads/threads.c:66-97):
     when exactly one worker would run the serial host path, compress

@@ -1,9 +1,10 @@
 """ctypes bindings to the shared host runtime (csrc/libaocl_tpu_host.so).
 
 The port binds the same C++ library as the JAX package, restricted to the
-symbols its codecs use: the LZ4 and LZ4HC block codecs and the RAP container
-writer/parser. The library is built with ``make -C csrc`` on first use
-when it is missing or older than its sources.
+symbols its codecs use: the LZ4 and LZ4HC block codecs, raw snappy, the
+deflate encoder and inflate, and the RAP container writer/parser. The
+library is built with ``make -C csrc`` on first use when it is missing or
+older than its sources.
 """
 
 from __future__ import annotations
@@ -38,6 +39,15 @@ _SIGNATURES = [
      [_u8p, _i64, _u8p, _i64, _i32, ctypes.POINTER(_i64)]),
     ("atpu_lz4_decompress", _i64, [_u8p, _i64, _u8p, _i64]),
     ("atpu_lz4_decompressed_size", _i64, [_u8p, _i64]),
+    ("atpu_snappy_max_compressed_length", _i64, [_i64]),
+    ("atpu_snappy_compress", _i64, [_u8p, _i64, _u8p, _i64]),
+    ("atpu_snappy_uncompressed_length", _i64, [_u8p, _i64]),
+    ("atpu_snappy_uncompress", _i64, [_u8p, _i64, _u8p, _i64]),
+    ("atpu_deflate", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _i32, _i32]),
+    ("atpu_inflate", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _i32]),
+    ("atpu_deflate_bound", _i64, [_i64]),
     ("atpu_rap_frame_len", _i64, [_i32]),
     ("atpu_rap_write", _i64, [_u8p, _i64, _i32, _u32p, _u32p, _u32p]),
     ("atpu_rap_parse", _i64, [_u8p, _i64, _u32p, _u32p, _u32p, _i32]),
@@ -188,6 +198,84 @@ def lz4_decompressed_size(data: bytes) -> int:
     lib = get_lib()
     src = _tobuf(data)
     return int(lib.atpu_lz4_decompressed_size(_as_u8p(src), len(data)))
+
+
+# --- Snappy -----------------------------------------------------------------
+# The snappy decoder and inflate hold every write inside dstCap (snappy's
+# fast loop keeps its margins against the physical capacity, inflate
+# checks each copy against it), so their buffers need no slack.
+
+def snappy_max_compressed_length(n: int) -> int:
+    return get_lib().atpu_snappy_max_compressed_length(n)
+
+
+def snappy_compress(data: bytes) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = lib.atpu_snappy_max_compressed_length(len(data))
+    ref, dp = _alloc_out(cap)
+    n = lib.atpu_snappy_compress(_as_u8p(src), len(data), dp, cap)
+    if n < 0:
+        raise ValueError("snappy host compress failed")
+    return _finish_out(ref, n)
+
+
+def snappy_uncompressed_length(data: bytes) -> int:
+    n = get_lib().atpu_snappy_uncompressed_length(_as_u8p(_tobuf(data)),
+                                                  len(data))
+    if n < 0:
+        raise ValueError("snappy: bad length preamble")
+    return n
+
+
+def snappy_uncompress(data: bytes) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    expected = snappy_uncompressed_length(data)
+    ref, dp = _alloc_out(expected)
+    n = lib.atpu_snappy_uncompress(_as_u8p(src), len(data), dp, expected)
+    if n < 0:
+        raise ValueError("snappy host decompress failed (corrupt stream?)")
+    return _finish_out(ref, n)
+
+
+# --- deflate / zlib (csrc/deflate.cpp) ----------------------------------------
+
+DEFLATE_ZLIB, DEFLATE_RAW, DEFLATE_SYNC_CHUNK = 0, 1, 2
+
+
+def deflate(data: bytes, level: int = 6, mode: int = DEFLATE_ZLIB) -> bytes:
+    """DEFLATE encoder: mode 0 = zlib stream, 1 = raw (final block),
+    2 = raw sync-flushed chunk (RAP container format)."""
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = lib.atpu_deflate_bound(len(data)) + 16
+    ref, dp = _alloc_out(cap)
+    n = lib.atpu_deflate(_as_u8p(src), len(data), dp, cap, level, mode)
+    if n < 0:
+        raise ValueError("deflate failed")
+    return _finish_out(ref, n)
+
+
+def inflate(data: bytes, expected_size: Optional[int] = None,
+            raw: bool = False) -> bytes:
+    """DEFLATE decoder (zlib stream verified via adler32, or raw)."""
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = expected_size if expected_size is not None else max(
+        64, 4 * len(data))
+    while True:
+        ref, dp = _alloc_out(cap)
+        n = lib.atpu_inflate(_as_u8p(src), len(data), dp, max(cap, 1),
+                             1 if raw else 0)
+        if n >= 0:
+            return _finish_out(ref, n)
+        if n == -2 and expected_size is None and cap < (1 << 31):
+            cap *= 4
+            continue
+        if n == -4:
+            raise ValueError("zlib: adler32 mismatch")
+        raise ValueError("inflate: corrupt stream")
 
 
 # --- RAP container ----------------------------------------------------------

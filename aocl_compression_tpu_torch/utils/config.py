@@ -46,6 +46,18 @@ def max_tier_from_env(default: int = TIER_MULTI) -> int:
     return default
 
 
+def forced_tier_from_env():
+    """Tier explicitly named by AOCL_ENABLE_INSTRUCTIONS, or None. An
+    explicit device-tier name is a user demand to run that backend: it
+    bypasses the measured-speed routing in dispatch (utils.calibration)."""
+    if os.environ.get("AOCL_DISABLE_OPT") is not None:
+        return TIER_HOST
+    val = os.environ.get("AOCL_ENABLE_INSTRUCTIONS")
+    if val:
+        return _TIER_NAMES.get(val.strip().upper())
+    return None
+
+
 @dataclasses.dataclass
 class FrameworkConfig:
     """Global knobs (the reference's CMake option matrix, at run time)."""

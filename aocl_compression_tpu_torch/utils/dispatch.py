@@ -16,7 +16,7 @@ import threading
 from collections import Counter
 from typing import Callable, Dict, Optional, Tuple
 
-from .config import TIER_HOST, max_tier_from_env
+from .config import TIER_HOST, forced_tier_from_env, max_tier_from_env
 
 _lock = threading.Lock()
 # (codec, op) -> {tier: (name, fn)}
@@ -36,16 +36,23 @@ def register(codec: str, op: str, tier: int, name: str):
 
 
 def resolve(codec: str, op: str, max_tier: Optional[int] = None,
-            opt_off: bool = False) -> Callable:
+            opt_off: bool = False, calibrated: bool = False) -> Callable:
     """Pick the best registered variant within the allowed tier cap.
 
     opt_off=True forces tier 0, the AOCL_DISABLE_OPT / optOff semantic.
+
+    calibrated=True applies the measured-speed policy (utils.calibration):
+    among eligible tiers, pick the fastest measured one instead of the
+    highest; a tier never measured is never picked this way. An explicit
+    AOCL_ENABLE_INSTRUCTIONS tier name overrides the table. Codecs pass
+    calibrated=True on their default paths and False when the caller
+    opted a tier in (opt_var >= 2, num_shards > 1).
     """
-    return resolve_with_tier(codec, op, max_tier, opt_off)[0]
+    return resolve_with_tier(codec, op, max_tier, opt_off, calibrated)[0]
 
 
 def resolve_with_tier(codec: str, op: str, max_tier: Optional[int] = None,
-                      opt_off: bool = False):
+                      opt_off: bool = False, calibrated: bool = False):
     """Like resolve, but also returns the chosen tier so callers can pass
     tier-specific context (e.g. the handle's device to a device tier)."""
     cap = TIER_HOST if opt_off else min(
@@ -58,9 +65,21 @@ def resolve_with_tier(codec: str, op: str, max_tier: Optional[int] = None,
         # the lowest registered tier is the floor every op provides
         eligible = [min(impls)]
     tier = max(eligible)
+    if calibrated and tier > TIER_HOST and forced_tier_from_env() is None:
+        from . import calibration
+        best = calibration.best_tier(codec, op, eligible)
+        if best is not None:
+            tier = best
     name, fn = impls[tier]
     _record_hit(name, tier)
     return fn, tier
+
+
+def resolve_host(codec: str, op: str) -> Callable:
+    """The host-tier variant of `codec`'s `op`, resolved so the audit
+    records the route: the device tiers take their format routes (blocks
+    over 64 KiB, blocks an encoder flags, tiny inputs) through it."""
+    return resolve(codec, op, TIER_HOST)
 
 
 # --- audit instrumentation (reference utils/utils.cpp:238-314) --------------

@@ -10,9 +10,11 @@ non-zero before the last line:
      together;
   3. every kernel against its plain PyTorch version, output for output:
      compact_rows (layout scan + bulk copy) at the main path's shapes
-     (N=256 chunks of OUTCAP=65536, sizes from a real encode), at the
-     exact encoder's rows (N=256 x OUTCAP=66048, 129 rows of 512 B, sizes
-     from a real lz4hc level-9 encode), at the decoder's full rows (N=256 x
+     (N=256 chunks of OUTCAP=65536, sizes from a real encode), at every
+     other path's rows with sizes from a real encode (lz4hc level 9: 66048
+     = 129 rows of 512 B; snappy G=4: 65536; snappy G=0: 76800 = 150 rows;
+     static deflate: 74240 = 145 rows; the dynamic deflate bodies at the
+     sizes its fetch reads: 74240), at the decoder's full rows (N=256 x
      65536, every row used), at edge sizes (0, OUTCAP, > OUTCAP) and at
      N=16384 x OUTCAP=512 with random sizes; a profiler window showing that
      one call runs only the port's two kernels; kernel / plain / library
@@ -35,12 +37,24 @@ non-zero before the last line:
   7. device decode (set_config(device_decode=True)) of the lz4 and lz4hc
      streams: exact, audited, MB/s beside the host decoder's, peak memory,
      the chunks on each route, resolve passes and per-stage device times;
-  8. one JSON line listing every ported kernel, its launches summed over
-     the paths of phases 4, 6 and 7;
-  9. last line: {"ok": true, "device": {...}}.
+  8. snappy: setup("snappy", opt_var=2) on the same corpus (3 calls):
+     audit, launches, ratio and MB/s beside the host tier's, peak memory,
+     host round trip, serial snappy_uncompress after skip_rap_frame, the
+     16-block stream's sha256 against the JAX package's, per-stage device
+     times; then device decode of the stream through the API (exact,
+     audited, launches per batch, MB/s beside the host decoder's) and its
+     stage times;
+  9. zlib: setup("zlib", level=1|2, opt_var=2) likewise, each stream read
+     by stdlib zlib.decompress after skip_rap_frame, the host deflate at
+     levels 1 and 6 timed on the same corpus, and the launches and device
+     time of the dynamic path's _kraft_lengths;
+ 10. one JSON line listing every ported kernel, its launches summed over
+     the paths of phases 4 and 6-9;
+ 11. last line: {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
+import hashlib
 import json
 import subprocess
 import sys
@@ -52,6 +66,25 @@ import torch
 B = 65536
 N = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peak
+
+# The new paths' calls, and the sha256 of the JAX package's RAP stream of
+# the corpus's first PINNED_BLOCKS blocks under each, computed with JAX on
+# the CPU (tests/test_torch_pinned.py holds them to the JAX package); the
+# port's stream on the card must match.
+PINNED_BLOCKS = 16
+PINNED_CALLS = {
+    "snappy": ("snappy", dict(opt_var=2)),
+    "zlib level 1": ("zlib", dict(level=1, opt_var=2)),
+    "zlib level 2": ("zlib", dict(level=2, opt_var=2)),
+}
+PINNED_SHA256 = {
+    "snappy":
+        "591c958f9e08f6a4e4d8c111ea34d19d3daf54cd0366486ad4648129a3b69a7b",
+    "zlib level 1":
+        "51ef226de55f3aeb726ac0b60eed46d896a4723cd7bce433bbe8f079435e6b8c",
+    "zlib level 2":
+        "42f3edfe137731687ee84e4b661ad771d74d8699b34f26f5ac0460f6826d9a38",
+}
 
 
 def corpus(total: int, seed: int = 42) -> bytes:
@@ -322,7 +355,6 @@ def phase_main(data: bytes, blocks, dev):
     c, c_s, n_launch, peak_gb = run_path(
         "main", lambda: act.compress(h, data),
         ("lz4_compress_blocks_torch", "fetch_chunks_kernel"))
-    launches = {"compact_rows": n_launch}
     if n_launch != 2 * 3:
         raise AssertionError("compact_rows did not launch its two kernels "
                              "once per compress call")
@@ -343,14 +375,15 @@ def phase_main(data: bytes, blocks, dev):
     stage, stream = staged(
         lambda rec: _device_bodies(blocks, 2, dev, mark=rec),
         ("start", "h2d", "find_matches", "lazy", "grid_select",
-         "emit_sorted", "compaction", "meta_d2h"), blocks)
+         "emit_sorted", "compaction", "meta_d2h"),
+        lambda r: stitch_rap(*r, blocks), "host_stitch_rap")
     if stream != c:
         raise AssertionError("staged device tier stream differs from the "
                              "API's")
     print("[main] stage times, ms (min of 3; device events, host clock for "
           "the stitch and RAP after the fetch; the d2h copies are pinned): "
-          + ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items()))
-    return launches, c
+          + fmt_stages(stage))
+    return n_launch, c
 
 
 def phase_bench(data: bytes, blocks, arr, lens):
@@ -381,34 +414,48 @@ def phase_bench(data: bytes, blocks, arr, lens):
           f"stitched stream decodes exactly")
 
 
-def stitch_rap(bodies, tails, blocks):
-    """The RAP stream the API writes from the encoder's bodies and tails."""
-    from aocl_compression_tpu_torch.codecs import lz4_stitch
+def rap_stream(chunks, dlens, pre=b""):
+    """The RAP stream the container writes around `chunks` (the codec's
+    preamble `pre` after the frame)."""
     from aocl_compression_tpu_torch.runtime import native
-    chunks, dlens = lz4_stitch.stitch_bodies(bodies, tails, blocks)
     offsets = np.cumsum([0] + [len(x) for x in chunks[:-1]])
     frame = native.rap_write(len(chunks), offsets + native.rap_frame_len(
-        len(chunks)), [len(x) for x in chunks], dlens)
-    return frame + b"".join(chunks)
+        len(chunks)) + len(pre), [len(x) for x in chunks], dlens)
+    return frame + pre + b"".join(chunks)
 
 
-def staged(run, names, blocks, calls=3):
+def stitch_rap(bodies, tails, blocks):
+    """The RAP stream the API writes from the lz4 encoder's bodies and
+    tails."""
+    from aocl_compression_tpu_torch.codecs import lz4_stitch
+    return rap_stream(*lz4_stitch.stitch_bodies(bodies, tails, blocks))
+
+
+def staged(run, names, finish, host_stage, calls=3, after=()):
     """run(rec) `calls` times, rec(stage) recording a CUDA event at each
     stage mark of the code it drives: ({stage: [ms, ...]}, the RAP stream
-    of the last call's bodies and tails). Each stage is timed from the mark
-    before it; d2h from d2h_start; host_stitch_rap on the host clock."""
-    stage = {k: [] for k in names[1:] + ("d2h", "host_stitch_rap")}
+    finish() makes of the last call's result). Each stage is timed from
+    the mark before it; d2h from d2h_start; the marks in `after` (host
+    work after the fetch) from d2h on; host_stage (finish) on the host
+    clock."""
+    stage = {k: [] for k in names[1:] + ("d2h",) + after + (host_stage,)}
     for _ in range(calls):
         ev = {k: torch.cuda.Event(enable_timing=True)
-              for k in names + ("d2h_start", "d2h")}
-        bodies, tails = run(lambda k: ev[k].record())
+              for k in names + ("d2h_start", "d2h") + after}
+        res = run(lambda k: ev[k].record())
         t1 = time.perf_counter()
-        stream = stitch_rap(bodies, tails, blocks)
-        stage["host_stitch_rap"].append((time.perf_counter() - t1) * 1e3)
+        stream = finish(res)
+        stage[host_stage].append((time.perf_counter() - t1) * 1e3)
         for a, b in zip(names, names[1:]):
             stage[b].append(ev[a].elapsed_time(ev[b]))
         stage["d2h"].append(ev["d2h_start"].elapsed_time(ev["d2h"]))
+        for a, b in zip(("d2h",) + after, after):
+            stage[b].append(ev[a].elapsed_time(ev[b]))
     return stage, stream
+
+
+def fmt_stages(stage):
+    return ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items())
 
 
 def run_path(label, fn, hits_want, calls=3):
@@ -475,13 +522,13 @@ def phase_lz4hc(data: bytes, blocks, arr, lens):
         lambda rec: _device_bodies(blocks, 1, arr.device, depth=depth, nw=nw,
                                    lazy=lazy, mark=rec),
         ("start", "h2d", "find_matches", "lazy", "greedy_parse",
-         "select_sequences", "emit", "compaction", "meta_d2h"), blocks)
+         "select_sequences", "emit", "compaction", "meta_d2h"),
+        lambda r: stitch_rap(*r, blocks), "host_stitch_rap")
     if stream != c:
         raise AssertionError("lz4hc: staged device tier stream differs from "
                              "the API's")
     print("[lz4hc] stage times, ms (min of 3; device events, host clock for "
-          "the stitch and RAP after the fetch): "
-          + ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items()))
+          "the stitch and RAP after the fetch): " + fmt_stages(stage))
 
     # mem_limit bounds the device batches (here two halves of the corpus)
     # and leaves the stream as it is
@@ -558,9 +605,24 @@ def phase_decode(data: bytes, streams, dev):
     sel = [i for i, d in enumerate(dlens) if d <= ld.MAX_DEVICE_BLOCK]
     chunks = [c[int(offs[i]):int(offs[i]) + int(lens_[i])] for i in sel]
     dl = [int(dlens[i]) for i in sel]
-    names = ("start", "h2d_batch", "token_scan", "chain_marks",
-             "output_map", "resolve", "gather_output", "compaction",
-             "meta_d2h")
+    stage, passes, got = decode_stages(ld.decode_blocks, chunks, dl, dev,
+                                       "token_scan")
+    if got != [native.lz4_decompress(x, d) for x, d in zip(chunks, dl)]:
+        raise AssertionError("decode: device batch differs from the host "
+                             "decoder")
+    print(f"[decode] lz4hc device batch: N={len(chunks)}, C="
+          f"{ld._bucket(max(len(x) for x in chunks))}, B="
+          f"{ld._bucket(max(max(dl), B))}, resolve passes {passes}; "
+          f"stage times, ms (min of 3; device events; h2d_batch spans the "
+          f"host's batch build and the upload): " + fmt_stages(stage))
+    return total
+
+
+def decode_stages(decode_blocks, chunks, dl, dev, scan_name):
+    """Stage times of one device batch through a decoder's stage marks:
+    ({stage: [ms, ...]}, resolve passes, the decoded chunks)."""
+    names = ("start", "h2d_batch", scan_name, "chain_marks", "output_map",
+             "resolve", "gather_output", "compaction", "meta_d2h")
     stage = {k: [] for k in names[1:] + ("d2h",)}
     for _ in range(3):
         ev = {k: torch.cuda.Event(enable_timing=True)
@@ -573,19 +635,198 @@ def phase_decode(data: bytes, streams, dev):
             else:
                 ev[k].record()
 
-        got = ld.decode_blocks(chunks, dl, B, device=dev, mark=rec)
+        got = decode_blocks(chunks, dl, B, device=dev, mark=rec)
         for a_, b_ in zip(names, names[1:]):
             stage[b_].append(ev[a_].elapsed_time(ev[b_]))
         stage["d2h"].append(ev["d2h_start"].elapsed_time(ev["d2h"]))
-    if got != [native.lz4_decompress(x, d) for x, d in zip(chunks, dl)]:
-        raise AssertionError("decode: device batch differs from the host "
-                             "decoder")
+    return stage, len(passes), got
+
+
+def check_pinned(label, stream):
+    """The port's stream of the corpus's first PINNED_BLOCKS blocks against
+    the JAX package's sha256 (tests/test_torch_pinned.py)."""
+    digest = hashlib.sha256(stream).hexdigest()
+    if digest != PINNED_SHA256[label]:
+        raise AssertionError(f"{label}: the {PINNED_BLOCKS}-block stream's "
+                             f"sha256 {digest} is not the JAX package's "
+                             f"{PINNED_SHA256[label]}")
+    print(f"[{label}] first {PINNED_BLOCKS} blocks: {len(stream)} B, sha256 "
+          f"{digest} = the JAX package's")
+
+
+def phase_snappy(data: bytes, blocks, dev):
+    """setup("snappy", opt_var=2): the sort-emit snappy encoder (G=4,
+    depth 4, nw 8) and, with device decode on, the snappy decoder."""
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch.codecs.snappy import (_device_frags,
+                                                          _varint)
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.ops import snappy_device as sd
+    from aocl_compression_tpu_torch.parallel import container
+    from aocl_compression_tpu_torch.runtime import native
+
+    mb = len(data) / 1e6
+    method, kw = PINNED_CALLS["snappy"]
+    h = act.setup(method, **kw)
+    c, c_s, launches, peak_gb = run_path(
+        "snappy", lambda: act.compress(h, data),
+        ("snappy_compress_blocks_torch", "fetch_chunks_kernel"))
+    if launches != 2 * 3:
+        raise AssertionError("snappy: compact_rows did not launch its two "
+                             "kernels once per compress call")
+    d, d_s = best_s(lambda: act.decompress(h, c))
+    if d != data:
+        raise AssertionError("snappy: decompress did not return the input")
+    if native.snappy_uncompress(container.skip_rap_frame(c)) != data:
+        raise AssertionError("snappy: serial decode after skip_rap_frame "
+                             "failed")
+    hh = act.setup("snappy", block_size=B)
+    ch, ch_s = best_s(lambda: act.compress(hh, data))
+    print(f"[snappy] setup('snappy', opt_var=2) on {h.device}: {len(data)} "
+          f"B -> {len(c)} B, ratio {len(data) / len(c):.4f} (host tier: "
+          f"{len(ch)} B, ratio {len(data) / len(ch):.4f}, {mb / ch_s:.2f} "
+          f"MB/s, best of 3); compress {mb / c_s:.2f} MB/s (best of 3, "
+          f"{c_s * 1e3:.2f} ms); host decode {mb / d_s:.2f} MB/s; round trip "
+          f"exact, serial decode exact; peak device memory {peak_gb:.2f} GB")
+    check_pinned("snappy", act.compress(h, data[:PINNED_BLOCKS * B]))
+
+    stage, stream = staged(
+        lambda rec: _device_frags(blocks, 2, dev, mark=rec),
+        ("start", "h2d", "find_matches", "grid_select", "emit_sorted",
+         "compaction", "meta_d2h"),
+        lambda frags: rap_stream(frags, [len(b) for b in blocks],
+                                 _varint(len(data))),
+        "host_rap", after=("tails",))
+    if stream != c:
+        raise AssertionError("snappy: staged device tier stream differs "
+                             "from the API's")
+    print("[snappy] stage times, ms (min of 3; device events; tails = the "
+          "host's trailing literal elements after the fetch; host_rap on "
+          "the host clock): " + fmt_stages(stage))
+
+    # device decode through the API, beside the host decoder
+    act.set_config(device_decode=True)
+    try:
+        dd, dd_s, dlaunches, dpeak_gb = run_path(
+            "decode snappy", lambda: act.decompress(h, c),
+            ("snappy_decompress_blocks_torch", "fetch_chunks_kernel"))
+    finally:
+        act.set_config(device_decode=False)
+    if dd != data:
+        raise AssertionError("snappy: device decode did not return the "
+                             "input")
+    offs, lens_, dlens = native.rap_parse(c)
+    chunks = [c[int(o):int(o) + int(n)] for o, n in zip(offs, lens_)]
     C = ld._bucket(max(len(x) for x in chunks))
-    print(f"[decode] lz4hc device batch: N={len(chunks)}, C={C}, B="
-          f"{ld._bucket(max(max(dl), B))}, resolve passes {len(passes)}; "
-          f"stage times, ms (min of 3; device events; h2d_batch spans the "
-          f"host's batch build and the upload): "
-          + ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items()))
+    batches = -(-len(chunks) // max(1, (32 << 20) // C))
+    if dlaunches != 2 * 3 * batches:
+        raise AssertionError("decode snappy: compact_rows did not launch its "
+                             "two kernels once per device batch")
+    print(f"[decode snappy] {len(c)} B stream: device decode "
+          f"{mb / dd_s:.2f} MB/s (best of 3, {dd_s * 1e3:.2f} ms), host "
+          f"decoder {mb / d_s:.2f} MB/s (best of 3); exact; all "
+          f"{len(chunks)} chunks on the device in {batches} batch(es) of "
+          f"C={C}; peak device memory {dpeak_gb:.2f} GB")
+    dl = [int(x) for x in dlens]
+    stage, passes, got = decode_stages(sd.decode_blocks, chunks, dl, dev,
+                                       "tag_scan")
+    if b"".join(got) != data:
+        raise AssertionError("decode snappy: staged batch differs")
+    print(f"[decode snappy] device batch: N={len(chunks)}, C={C}, resolve "
+          f"passes {passes}; stage times, ms (min of 3; device events): "
+          + fmt_stages(stage))
+    return launches + dlaunches
+
+
+def phase_zlib(data: bytes, blocks, dev):
+    """setup("zlib", level=1|2, opt_var=2): the static and the dynamic
+    device deflate encoders (G=4, 32 KiB window); decode on the host."""
+    import zlib
+
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch.codecs.zlib_bzip2_lzma import (
+        _device_chunks, _trailer)
+    from aocl_compression_tpu_torch.ops import deflate_device as dd
+    from aocl_compression_tpu_torch.parallel import container
+
+    mb = len(data) / 1e6
+    total = 0
+    stages = {1: ("start", "h2d", "find_matches", "grid_parse", "emit",
+                  "compaction", "meta_d2h"),
+              2: ("start", "h2d", "find_matches", "grid_parse", "histograms",
+                  "kraft_lengths", "canonical_codes", "emit", "compaction",
+                  "meta_d2h")}
+    for level in (1, 2):
+        label = f"zlib level {level}"
+        method, kw = PINNED_CALLS[label]
+        h = act.setup(method, **kw)
+        c, c_s, launches, peak_gb = run_path(
+            f"zlib{level}", lambda: act.compress(h, data),
+            ("zlib_compress_blocks_torch", "fetch_chunks_kernel"))
+        if launches != 2 * 3:
+            raise AssertionError(f"{label}: compact_rows did not launch its "
+                                 f"two kernels once per compress call")
+        total += launches
+        d, d_s = best_s(lambda: act.decompress(h, c))
+        if d != data:
+            raise AssertionError(f"{label}: decompress did not return the "
+                                 f"input")
+        if zlib.decompress(container.skip_rap_frame(c)) != data:
+            raise AssertionError(f"{label}: stdlib zlib does not read the "
+                                 f"stream after skip_rap_frame")
+        print(f"[zlib{level}] setup('zlib', level={level}, opt_var=2) on "
+              f"{h.device}: {len(data)} B -> {len(c)} B, ratio "
+              f"{len(data) / len(c):.4f}; compress {mb / c_s:.2f} MB/s (best "
+              f"of 3, {c_s * 1e3:.2f} ms); host decode {mb / d_s:.2f} MB/s; "
+              f"round trip exact, stdlib zlib reads it after skip_rap_frame; "
+              f"peak device memory {peak_gb:.2f} GB")
+        check_pinned(label, act.compress(h, data[:PINNED_BLOCKS * B]))
+        stage, stream = staged(
+            lambda rec: _device_chunks(blocks, level, dev, mark=rec),
+            stages[level],
+            lambda ch: rap_stream(ch, [len(b) for b in blocks],
+                                  dd.ZLIB_HEADER)
+            + _trailer(data),
+            "host_rap", after=("header_splice",) if level == 2 else ())
+        if stream != c:
+            raise AssertionError(f"{label}: staged device tier stream "
+                                 f"differs from the API's")
+        print(f"[zlib{level}] stage times, ms (min of 3; device events; "
+              f"host_rap on the host clock"
+              + ("; header_splice = the host's headers and body splices "
+                 "after the fetch" if level == 2 else "") + "): "
+              + fmt_stages(stage))
+
+    # the host deflate at levels 1 and 6 on the same corpus
+    for level in (1, 6):
+        hh = act.setup("zlib", level=level)
+        ch, ch_s = best_s(lambda: act.compress(hh, data), 2)
+        bs = act.get_codec("zlib")._block_size(hh, level)
+        print(f"[zlib host] setup('zlib', level={level}) (host tier, {bs} B "
+              f"blocks): {len(ch)} B, ratio "
+              f"{len(data) / len(ch):.4f}, {mb / ch_s:.2f} MB/s (best of 2)")
+
+    # the launches and device time of the dynamic path's two
+    # _kraft_lengths calls, on the corpus blocks' byte histograms
+    from torch.profiler import ProfilerActivity, profile
+    arr = torch.from_numpy(np.frombuffer(data, np.uint8).reshape(N, B)
+                           .astype(np.int64)).to(dev)
+    hist = torch.zeros((N, 288), dtype=torch.int32, device=dev)
+    hist.scatter_add_(1, arr, torch.ones_like(arr, dtype=torch.int32))
+    hist[:, 256] += 1
+    hd = torch.ones((N, 32), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dd._kraft_lengths(hist, 288)
+        dd._kraft_lengths(hd, 32)
+        torch.cuda.synchronize()
+    dev_ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[zlib2] _kraft_lengths for 288 + 32 symbols (N={N}): "
+          f"{sum(e.count for e in dev_ops)} device launches, "
+          f"{sum(e.self_device_time_total for e in dev_ops) / 1e3:.3f} ms "
+          f"device time (profiler)")
     return total
 
 
@@ -607,29 +848,46 @@ def main():
         np.frombuffer(data, dtype=np.uint8).reshape(N, B).copy()).to(dev)
     lens = torch.full((N,), B, dtype=torch.int32, device=dev)
 
-    # real encodes at the main path's config and at lz4hc level 9 give the
-    # kernel its sizes; the decoder's rows are the corpus itself
+    # real encodes at the paths' configs give the kernel its sizes: the lz4
+    # main path, lz4hc level 9, snappy's tile (G=4) and exact (G=0)
+    # encoders, the static deflate encoder and the dynamic one's bodies (at
+    # the sizes its fetch reads); the decoder's rows are the corpus itself
+    from aocl_compression_tpu_torch.ops import deflate_device as dd
+    from aocl_compression_tpu_torch.ops import snappy_device as sd
     out, sizes, _, _ = lz4_device.make_encoder(B, 4)(arr, lens)
-    hc_out, hc_sizes, _, _ = lz4_device.make_encoder(B, 0, 11, 32, lazy=1)(
-        arr, lens)
-    kernel = phase_kernel(out, sizes, {
-        f"the lz4hc encode, N={N} x OUTCAP={hc_out.shape[1]}":
-            (hc_out, hc_sizes),
-        f"the decoder's full rows, N={N} x {B}": (arr, lens)})
-    del hc_out, hc_sizes
-    launches, c_lz4 = phase_main(data, blocks, dev)
+    slices = {}
+
+    def add_slice(label, bodies, sz):
+        slices[f"{label}, N={N} x OUTCAP={bodies.shape[1]}"] = (bodies, sz)
+
+    add_slice("the lz4hc encode",
+              *lz4_device.make_encoder(B, 0, 11, 32, lazy=1)(arr, lens)[:2])
+    add_slice("the decoder's full rows", arr, lens)
+    add_slice("the snappy encode (G=4)", *sd.make_encoder(B, 4)(arr, lens)[:2])
+    add_slice("the snappy exact encode (G=0)",
+              *sd.make_encoder(B, 0)(arr, lens)[:2])
+    add_slice("the static deflate encode", *dd.make_encoder(B, 4)(arr, lens))
+    dyn_out, bits = dd.make_encoder_dyn(B, 4)(arr, lens)[:2]
+    add_slice("the dynamic deflate bodies", dyn_out, torch.clamp(
+        (bits + 7) // 8 + 1, max=dyn_out.shape[1]).to(torch.int32))
+    del dyn_out, bits
+    kernel = phase_kernel(out, sizes, slices)
+    del slices
+    paths = {}
+    paths["lz4"], c_lz4 = phase_main(data, blocks, dev)
     phase_bench(data, blocks, arr, lens)
-    hc_launches, c_hc, _ = phase_lz4hc(data, blocks, arr, lens)
-    dec_launches = phase_decode(data, {"lz4": c_lz4, "lz4hc": c_hc}, dev)
-    launches["compact_rows"] += hc_launches + dec_launches
-    print(f"[paths] compact_rows launches: lz4 "
-          f"{launches['compact_rows'] - hc_launches - dec_launches}, lz4hc "
-          f"{hc_launches}, device decode {dec_launches}")
+    paths["lz4hc"], c_hc, _ = phase_lz4hc(data, blocks, arr, lens)
+    paths["lz4/lz4hc device decode"] = phase_decode(
+        data, {"lz4": c_lz4, "lz4hc": c_hc}, dev)
+    paths["snappy encode + device decode"] = phase_snappy(data, blocks, dev)
+    paths["zlib levels 1 and 2"] = phase_zlib(data, blocks, dev)
+    print("[paths] compact_rows launches: " + ", ".join(
+        f"{k} {v}" for k, v in paths.items()))
 
     kernels = [dict(name="compact_rows", route="cuda",
                     source="aocl_compression_tpu_torch/csrc/compact.cu",
                     replaces="aocl_compression_tpu/ops/compact.py:47",
-                    launches=launches["compact_rows"], bound_by="bytes",
+                    launches=sum(paths.values()), bound_by="bytes",
                     **kernel)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -225,3 +225,197 @@ def test_lz4hc_default_device_is_cuda():
     else:
         with pytest.raises(RuntimeError):
             act.setup("lz4hc", opt_var=2)
+
+
+# --- snappy and zlib ----------------------------------------------------------
+
+NEW_PATHS = {
+    "snappy": ("snappy", dict(opt_var=2)),
+    "zlib1": ("zlib", dict(level=1, opt_var=2)),
+    "zlib2": ("zlib", dict(level=2, opt_var=2)),
+}
+
+
+def _serial_decode(method, c, n):
+    """The stream after skip_rap_frame through a serial decoder: the host
+    snappy decoder, stdlib zlib."""
+    import zlib
+    body = container.skip_rap_frame(c)
+    if method == "snappy":
+        return native.snappy_uncompress(body)
+    return zlib.decompress(body)
+
+
+@pytest.mark.parametrize("path", list(NEW_PATHS))
+@pytest.mark.parametrize("kind", ["text", "mixed", "random"])
+def test_new_device_tier_stream_identical(device_tier, kind, path):
+    """setup("snappy", opt_var=2) and setup("zlib", level=1|2, opt_var=2):
+    byte-identical RAP streams, audited on the device tier, read back by
+    the API and by a serial decoder."""
+    method, kw = NEW_PATHS[path]
+    data = _data(kind)
+    ref = actpu.compress(actpu.setup(method, block_size=B, **kw), data)
+    h = act.setup(method, block_size=B, device="cpu", **kw)
+    tdispatch.enable_audit(True)
+    try:
+        c = act.compress(h, data)
+        hits = tdispatch.audit_hits()
+    finally:
+        tdispatch.enable_audit(False)
+    assert hits.get(f"{method}_compress_blocks_torch") == 1
+    assert hits.get("fetch_chunks_torch") == 1
+    assert c == ref
+    assert act.decompress(h, c) == data
+    assert _serial_decode(method, c, len(data)) == data
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("snappy", {}), ("zlib", dict(level=1)), ("zlib", dict(level=2)),
+    ("zlib", dict(level=6))], ids=["snappy", "zlib1", "zlib2", "zlib6"])
+def test_new_host_tier_stream_identical(method, kw):
+    data = _data("mixed")
+    ref = actpu.compress(actpu.setup(method, block_size=B, **kw), data)
+    h = act.setup(method, block_size=B, device="cpu", **kw)
+    c = act.compress(h, data)
+    assert c == ref
+    assert act.decompress(h, c) == data
+
+
+def test_zlib_without_opt_in_stays_on_host(monkeypatch):
+    """With no opt-in, calibrated dispatch keeps zlib levels 1-2 on the
+    host tier (the port's table is empty, so no device tier is picked on
+    its own); opt_var=2 or AOCL_ENABLE_INSTRUCTIONS naming a device tier
+    selects the device tier; the block size follows, as in the JAX
+    package."""
+    from aocl_compression_tpu_torch.utils import calibration
+    monkeypatch.delenv("AOCL_ENABLE_INSTRUCTIONS", raising=False)
+    assert calibration.MEASURED_MBPS == {}
+    data = _data("text") * 40
+    codec = act.get_codec("zlib")
+    for kw, name in ((dict(level=1), "zlib_compress_blocks_host"),
+                     (dict(level=2, opt_var=2), "zlib_compress_blocks_torch")):
+        h = act.setup("zlib", device="cpu", **kw)
+        tdispatch.enable_audit(True)
+        try:
+            c = act.compress(h, data)
+            hits = tdispatch.audit_hits()
+        finally:
+            tdispatch.enable_audit(False)
+        assert name in hits, hits
+        assert act.decompress(h, c) == data
+    assert codec._block_size(act.setup("zlib", level=1, device="cpu")) == \
+        4 * 32768
+    assert codec._block_size(act.setup("zlib", level=1, opt_var=2,
+                                       device="cpu")) == 65536
+    monkeypatch.setenv("AOCL_ENABLE_INSTRUCTIONS", "TORCH")
+    assert codec._block_size(act.setup("zlib", level=2, device="cpu")) == \
+        65536
+    assert tdispatch.resolve("zlib", "compress_blocks", calibrated=True) \
+        is not tdispatch.resolve_host("zlib", "compress_blocks")
+
+
+def test_calibrated_dispatch_policy(monkeypatch):
+    """best_tier: an empty entry keeps the host tier; a measured device
+    tier wins only when faster."""
+    from aocl_compression_tpu_torch.utils import calibration
+    monkeypatch.delenv("AOCL_ENABLE_INSTRUCTIONS", raising=False)
+    assert calibration.best_tier("zlib", "compress_blocks", [0, 1]) == 0
+    assert calibration.best_tier("zlib", "compress_blocks", [1]) is None
+    monkeypatch.setitem(calibration.MEASURED_MBPS,
+                        ("zlib", "compress_blocks"), {0: 100.0, 1: 300.0})
+    assert calibration.best_tier("zlib", "compress_blocks", [0, 1]) == 1
+    assert tdispatch.resolve_with_tier("zlib", "compress_blocks",
+                                       calibrated=True)[1] == 1
+    monkeypatch.setitem(calibration.MEASURED_MBPS,
+                        ("zlib", "compress_blocks"), {0: 100.0})
+    assert tdispatch.resolve_with_tier("zlib", "compress_blocks",
+                                       calibrated=True)[1] == 0
+    assert tdispatch.resolve_with_tier("zlib", "compress_blocks")[1] == 1
+
+
+def test_snappy_device_decode_round_trip(device_tier, monkeypatch):
+    """AOCL_DEVICE_DECODE=1 routes snappy RAP decode to the port's device
+    decoder (audited); zlib decode stays on the host tier until device
+    inflate is ported."""
+    data = _data("mixed")
+    for method, kw in (NEW_PATHS["snappy"], NEW_PATHS["zlib2"]):
+        h = act.setup(method, block_size=B, device="cpu", **kw)
+        c = act.compress(h, data)
+        tdispatch.enable_audit(True)
+        try:
+            monkeypatch.setenv("AOCL_DEVICE_DECODE", "1")
+            assert act.decompress(h, c) == data
+            hits = tdispatch.audit_hits()
+        finally:
+            tdispatch.enable_audit(False)
+            monkeypatch.delenv("AOCL_DEVICE_DECODE")
+        want = ("snappy_decompress_blocks_torch" if method == "snappy"
+                else "zlib_decompress_blocks_host")
+        assert hits.get(want) == 1, hits
+
+
+def test_new_format_routes_audited(device_tier):
+    """The device tiers' routes to the host are audited by name: blocks
+    over 64 KiB (snappy, zlib), a snappy block the sort-emit flags, a
+    snappy decode batch with a chunk over 64 KiB, zlib single-shot input
+    under 1 KiB; and the dynamic path's static re-encode."""
+    from aocl_compression_tpu_torch.codecs import snappy as tsnappy
+    from aocl_compression_tpu_torch.codecs import zlib_bzip2_lzma as tzlib
+    from test_torch_snappy import _flagged_block
+    big = _data("text") * 15
+    cases = [
+        (lambda: tsnappy._compress_blocks_torch([big, b"x" * 100], 2, "cpu"),
+         "snappy_compress_blocks_host"),
+        (lambda: tzlib._zlib_compress_blocks_torch([big, b"x" * 100], 1,
+                                                   "cpu"),
+         "zlib_compress_blocks_host"),
+        (lambda: tsnappy._compress_blocks_torch(
+            [_flagged_block(), _data("text")[:B]], 2, "cpu"),
+         "snappy_compress_host"),
+        (lambda: tsnappy._decompress_blocks_torch(
+            [tsnappy._strip_preamble(native.snappy_compress(big))],
+            [len(big)], B, "cpu"),
+         "snappy_decompress_blocks_host"),
+        (lambda: tzlib._zlib_compress_torch(b"tiny" * 100, 2, "cpu"),
+         "zlib_compress_host"),
+        (lambda: tzlib._device_chunks([b"", _data("text")[:B]], 2, "cpu"),
+         "zlib_compress_static_torch"),
+    ]
+    for run, name in cases:
+        tdispatch.enable_audit(True)
+        try:
+            run()
+            hits = tdispatch.audit_hits()
+        finally:
+            tdispatch.enable_audit(False)
+        assert hits.get(name) == 1, (name, hits)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_zlib_single_shot_device_stream_identical(device_tier, level):
+    """The single-shot zlib stream of the device tier (no RAP frame)."""
+    data = _data("text")[:3000]
+    kw = dict(level=level, opt_var=2, enable_rap=False)
+    ref = actpu.compress(actpu.setup("zlib", **kw), data)
+    h = act.setup("zlib", device="cpu", **kw)
+    c = act.compress(h, data)
+    assert c == ref
+    assert act.decompress(h, c) == data
+
+
+def test_new_paths_mem_limit_keep_stream(device_tier):
+    data = _data("mixed")
+    for method, kw in NEW_PATHS.values():
+        h = act.setup(method, block_size=B, device="cpu", **kw)
+        hm = act.setup(method, block_size=B, device="cpu", mem_limit=2 * B,
+                       **kw)
+        assert act.compress(hm, data) == act.compress(h, data)
+
+
+def test_new_paths_default_device_is_cuda():
+    for method, kw in NEW_PATHS.values():
+        if torch.cuda.is_available():
+            assert act.setup(method, **kw).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError):
+                act.setup(method, **kw)

@@ -54,12 +54,17 @@ def _cases():
     bodies, _ = _mk(3, 65536, seed=9)
     cases.append((3, 65536, bodies, np.array([65536, 65536, 1000],
                                              np.int32)))
+    # the deflate encoders' rows (74240 = 145 rows) and the snappy exact
+    # encoder's (76800 = 150 rows)
+    cases.append((6, 74240, *_mk_edges(6, 74240, seed=10)))
+    cases.append((6, 76800, *_mk_edges(6, 76800, seed=11)))
     return cases
 
 
 CASES = _cases()
 IDS = ["4x512", "8x1024", "3x2048", "zero_full", "3000x512_edges",
-       "all_zero", "all_full", "6x66048_edges", "3x65536_decode"]
+       "all_zero", "all_full", "6x66048_edges", "3x65536_decode",
+       "6x74240_deflate_edges", "6x76800_snappy_exact_edges"]
 
 
 def _jax_compact(N, OUTCAP, bodies, sizes):
@@ -130,6 +135,18 @@ def test_kernel_wrapper_rejects_cpu_tensors():
                                      torch.from_numpy(sizes))
 
 
+def test_single_row_slice_of_wider_buffer():
+    """One row cut from a wider buffer (an emitter's spare scatter slot)
+    reports contiguous with a row stride other than OUTCAP; the
+    compaction reads it as dense rows."""
+    wide = torch.from_numpy(_mk(1, 1024 + 1, seed=12)[0])
+    bodies = wide[:, :1024]
+    assert bodies.is_contiguous() and bodies.stride(0) == 1025
+    sizes = torch.tensor([700], dtype=torch.int32)
+    assert tcompact.fetch_chunks(bodies, sizes) == [
+        wide[0, :700].numpy().tobytes()]
+
+
 def test_oversize_body_clamped_to_capacity():
     """A flagged block's body may exceed the padded capacity; the layout
     clamps it so no copy leaves its chunk."""
@@ -193,11 +210,14 @@ def test_kernel_matches_plain_edges(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 66048), (256, 65536)],
-                         ids=["256x66048_exact_encode", "256x65536_decode"])
+@pytest.mark.parametrize("shape", [(256, 66048), (256, 65536), (256, 74240),
+                                   (256, 76800)],
+                         ids=["256x66048_exact_encode", "256x65536_decode",
+                              "256x74240_deflate", "256x76800_snappy_exact"])
 def test_kernel_matches_plain_slice_shapes(cuda_device, shape):
-    """The exact encoder's 129-row chunks (sizes at the row and clamp
-    edges) and the decoder's full 64 KiB rows (every row used)."""
+    """The lz4 exact encoder's 129-row chunks, the deflate encoders' 145
+    rows and the snappy exact encoder's 150 rows (sizes at the row and
+    clamp edges), and the decoders' full 64 KiB rows (every row used)."""
     N, OUTCAP = shape
     bodies, sizes = _mk_edges(N, OUTCAP, seed=OUTCAP)
     if OUTCAP == 65536:

@@ -1,0 +1,53 @@
+"""The sha256 constants chip_smoke.py holds the port's snappy and zlib
+streams against on the card (PINNED_SHA256 there) are the JAX package's.
+
+For each pinned call, the JAX package at its device tier
+(AOCL_ENABLE_INSTRUCTIONS=XLA, JAX on the CPU) compresses the first
+PINNED_BLOCKS blocks of chip_smoke.py's corpus (64 KiB blocks, seed 42);
+the digest must be the constant, and the port on device="cpu" must give
+the same bytes. After a change that alters those bytes on purpose, the
+assertion message carries the new digest:
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_pinned.py -q
+"""
+
+import functools
+import hashlib
+import importlib.util
+import os
+
+import pytest
+
+import aocl_compression_tpu as actpu
+import aocl_compression_tpu_torch as act
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _chip_smoke()
+
+
+@functools.lru_cache(maxsize=None)
+def _data() -> bytes:
+    return SMOKE.corpus(SMOKE.B * SMOKE.N)[:SMOKE.B * SMOKE.PINNED_BLOCKS]
+
+
+@pytest.mark.parametrize("label", list(SMOKE.PINNED_CALLS))
+def test_pinned_stream_is_the_jax_packages(monkeypatch, label):
+    monkeypatch.setenv("AOCL_ENABLE_INSTRUCTIONS", "XLA")
+    method, kw = SMOKE.PINNED_CALLS[label]
+    ref = actpu.compress(actpu.setup(method, **kw), _data())
+    digest = hashlib.sha256(ref).hexdigest()
+    assert digest == SMOKE.PINNED_SHA256[label], (
+        f"{label}: the JAX package's stream is {len(ref)} B, sha256 "
+        f"{digest}")
+    assert act.compress(act.setup(method, device="cpu", **kw),
+                        _data()) == ref
