@@ -5,7 +5,8 @@ package, on torch tensors. Device tiers run on an NVIDIA GPU; hot stages
 that were Pallas kernels are hand-written CUDA kernels
 (aocl_compression_tpu_torch/csrc). Codecs are ported slice by slice; this
 package currently carries lz4 and lz4hc (device encode and decode), snappy
-(device encode and decode) and zlib (device encode at levels 1 and 2).
+(device encode and decode), zlib (device encode at levels 1 and 2) and
+zstd (device encode at level 1, device decode).
 
 Quick start:
 

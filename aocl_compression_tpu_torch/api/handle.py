@@ -11,6 +11,7 @@ Reference struct: api/aocl_compression.h:125-152. Field map:
                           utils.config)
   (new)                -> device: where the device tiers run; setup
                           resolves None to cuda (utils.device)
+  dictionary           -> dictionary (zstd; keeps zstd on the host tier)
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ class Handle:
     block_size: int = 0          # 0 = codec default chunking
     enable_rap: Optional[bool] = None  # None = framework config default
     device: Optional[torch.device] = None  # resolved by setup
+    dictionary: Optional[bytes] = None   # zstd dictionary (host tier)
     stats: Stats = dataclasses.field(default_factory=Stats)
     state: Any = None            # codec workmem (reference workBuf)
     _setup_done: bool = False

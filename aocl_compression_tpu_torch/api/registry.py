@@ -36,7 +36,9 @@ def _build_registry() -> None:
     from ..codecs.lz4hc import Lz4hcCodec
     from ..codecs.snappy import SnappyCodec
     from ..codecs.zlib_bzip2_lzma import ZlibCodec
-    for codec in (Lz4Codec(), Lz4hcCodec(), SnappyCodec(), ZlibCodec()):
+    from ..codecs.zstd import ZstdCodec
+    for codec in (Lz4Codec(), Lz4hcCodec(), SnappyCodec(), ZlibCodec(),
+                  ZstdCodec()):
         _codecs[codec.name] = codec
 
 

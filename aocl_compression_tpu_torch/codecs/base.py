@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..api.handle import Handle
+from ..utils.config import TIER_HOST, forced_tier_from_env
 
 
 class Codec:
@@ -44,3 +45,12 @@ class Codec:
     def decompress(self, handle: Handle, data: bytes,
                    expected_size: Optional[int] = None) -> bytes:
         raise NotImplementedError
+
+
+def device_opt_in(handle: Handle) -> bool:
+    """Explicit device-tier request: opt_var >= 2 (the lz4 accel
+    convention), num_shards > 1, or AOCL_ENABLE_INSTRUCTIONS naming a
+    device tier. Without one, dispatch routes by measured speed
+    (utils.calibration)."""
+    return (handle.opt_var >= 2 or handle.num_shards > 1
+            or (forced_tier_from_env() or TIER_HOST) > TIER_HOST)

@@ -11,7 +11,7 @@ Decode runs on the host inflate. The JAX package's device inflate
 (ops/inflate_device.py) is not ported yet: with AOCL_DEVICE_DECODE=1 the
 port's zlib decode still goes to the host tier.
 
-The device tier is used on an explicit opt-in only (_device_opt_in);
+The device tier is used on an explicit opt-in only (device_opt_in);
 otherwise dispatch routes by measured speed (utils.calibration), whose
 table is empty in the port, so the host tier runs.
 
@@ -35,16 +35,8 @@ from ..parallel import container
 from ..runtime import native
 from ..utils import dispatch
 from ..utils.config import (TIER_HOST, TIER_TORCH, device_decode_enabled,
-                            forced_tier_from_env, get_config)
-from .base import Codec
-
-
-def _device_opt_in(handle: Handle) -> bool:
-    """Explicit device-tier request: opt_var >= 2 (the lz4 accel
-    convention), num_shards > 1, or AOCL_ENABLE_INSTRUCTIONS naming a
-    device tier. Without one, dispatch routes by measured speed."""
-    return (handle.opt_var >= 2 or handle.num_shards > 1
-            or (forced_tier_from_env() or TIER_HOST) > TIER_HOST)
+                            get_config)
+from .base import Codec, device_opt_in
 
 
 def _trailer(data: bytes) -> bytes:
@@ -76,7 +68,7 @@ class ZlibCodec(Codec):
         cfg = get_config()
         lvl = level if level is not None else \
             self.clamp_level(handle.level or self.default_level)
-        if lvl <= 2 and _device_opt_in(handle) and (
+        if lvl <= 2 and device_opt_in(handle) and (
                 handle.max_tier is None or handle.max_tier >= TIER_TORCH):
             # device tiers: blocks within the 16-bit limit
             return min(cfg.default_block_size, 1 << 16)
@@ -92,7 +84,7 @@ class ZlibCodec(Codec):
         max_tier = handle.max_tier if level <= 2 else TIER_HOST
         cb, ctier = dispatch.resolve_with_tier(
             "zlib", "compress_blocks", max_tier, handle.opt_off,
-            calibrated=not _device_opt_in(handle))
+            calibrated=not device_opt_in(handle))
         if ctier == TIER_HOST:
             def compress(blocks):
                 return cb(blocks, level, workers=handle.num_shards or None)
@@ -114,7 +106,7 @@ class ZlibCodec(Codec):
         level = self.clamp_level(handle.level or self.default_level)
         rap = (handle.enable_rap if handle.enable_rap is not None
                else get_config().enable_rap and not container.st_fallback(
-                   handle, _device_opt_in(handle) and level <= 2))
+                   handle, device_opt_in(handle) and level <= 2))
         if rap:
             out = container.compress_rapped(
                 data, self._block_size(handle, level),
@@ -123,7 +115,7 @@ class ZlibCodec(Codec):
                 return out + _trailer(data)
         fn, tier = dispatch.resolve_with_tier(
             "zlib", "compress", handle.max_tier if level <= 2 else TIER_HOST,
-            handle.opt_off, calibrated=not _device_opt_in(handle))
+            handle.opt_off, calibrated=not device_opt_in(handle))
         if tier == TIER_HOST:
             return fn(data, level)
         return fn(data, level, handle.device)

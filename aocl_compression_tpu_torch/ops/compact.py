@@ -57,27 +57,37 @@ def round_capacity(n: int) -> int:
     return -(-n // ROWB) * ROWB
 
 
-def build() -> str:
-    """Compile csrc/compact.cu for sm_90a into _build/ (if stale) and
-    return the library path. Raises if nvcc fails."""
-    global build_log
-    if (os.path.exists(_LIB)
-            and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
-        return _LIB
+def nvcc_build(src: str, lib: str) -> str:
+    """Compile the CUDA source `src` for sm_90a into the shared library
+    `lib` (if it is missing or older than the source) with ptxas's resource
+    report; returns nvcc's output ("" when the library is up to date).
+    Raises if nvcc fails."""
+    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        return ""
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
     res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                           "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                          "-Xcompiler", "-fPIC", "-o", tmp, _SRC],
+                          "-Xcompiler", "-fPIC", "-o", tmp, src],
                          capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
+    log = res.stdout + res.stderr
     if res.returncode:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
-    os.replace(tmp, _LIB)
+        raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    os.replace(tmp, lib)
+    return log
+
+
+def build() -> str:
+    """Compile csrc/compact.cu into _build/ (if stale) and return the
+    library path. Raises if nvcc fails."""
+    global build_log
+    log = nvcc_build(_SRC, _LIB)
+    if log:
+        build_log = log
     return _LIB
 
 

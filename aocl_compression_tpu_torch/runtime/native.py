@@ -2,7 +2,9 @@
 
 The port binds the same C++ library as the JAX package, restricted to the
 symbols its codecs use: the LZ4 and LZ4HC block codecs, raw snappy, the
-deflate encoder and inflate, and the RAP container writer/parser. The
+deflate encoder and inflate, the zstd encoder, decoder and frame planner
+(the device decoder's header cracking), and the RAP container
+writer/parser. The
 library is built with ``make -C csrc`` on first use when it is missing or
 older than its sources.
 """
@@ -53,6 +55,17 @@ _SIGNATURES = [
     ("atpu_rap_parse", _i64, [_u8p, _i64, _u32p, _u32p, _u32p, _i32]),
     ("atpu_rap_skip", _i64, [_u8p, _i64]),
     ("atpu_rap_frame_bound", _i64, [_i64, _i64]),
+    ("atpu_zstd_decompress", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t]),
+    ("atpu_zstd_frame_content_size", _i64, [_u8p, ctypes.c_size_t]),
+    ("atpu_zstd_frame_compressed_size", _i64, [_u8p, ctypes.c_size_t]),
+    ("atpu_zstd_compress_ex", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _i32, _u8p,
+      ctypes.c_size_t, _i32]),
+    ("atpu_zstd_compress_bound", _i64, [_i64]),
+    ("atpu_zstd_frame_plan", _i64,
+     [_u8p, ctypes.c_size_t, ctypes.POINTER(_i32),
+      ctypes.POINTER(ctypes.c_uint16), _u32p, _i64, ctypes.POINTER(_i64)]),
 ]
 
 
@@ -329,3 +342,119 @@ def rap_skip(data: bytes) -> int:
 
 def rap_frame_bound(src_size: int, chunk_size: int) -> int:
     return get_lib().atpu_rap_frame_bound(src_size, chunk_size)
+
+
+# --- zstd (csrc/zstd_encode.cpp, csrc/zstd_decode.cpp) ------------------------
+
+def zstd_compress(data: bytes, level: int = 3,
+                  dictionary: Optional[bytes] = None,
+                  checksum: bool = False) -> bytes:
+    """The library's zstd encoder, levels -64..22, with an optional
+    raw-content or structured dictionary and Content_Checksum."""
+    lib = get_lib()
+    src = _tobuf(data)
+    d = _tobuf(dictionary) if dictionary else None
+    cap = lib.atpu_zstd_compress_bound(len(data)) + 64
+    ref, dp = _alloc_out(cap)
+    n = lib.atpu_zstd_compress_ex(
+        _as_u8p(src), len(data), dp, cap, level,
+        _as_u8p(d) if d is not None and d.size else None,
+        int(d.size) if d is not None else 0, 1 if checksum else 0)
+    if n < 0:
+        raise ValueError("zstd compress failed")
+    return _finish_out(ref, n)
+
+
+def zstd_frame_content_size(data: bytes) -> Optional[int]:
+    """Declared content size of the first frame, or None if unknown."""
+    n = get_lib().atpu_zstd_frame_content_size(_as_u8p(_tobuf(data)),
+                                               len(data))
+    return int(n) if n >= 0 else None
+
+
+def zstd_decompress(data: bytes, expected_size: Optional[int] = None,
+                    dictionary: Optional[bytes] = None) -> bytes:
+    """Decode a stream of concatenated zstd frames (skippable ones too).
+
+    Capacity: expected_size if given, else the sum of the declared frame
+    content sizes when every frame declares one, else a guess that grows
+    on the decoder's dst-too-small error."""
+    if not data:
+        return b""
+    lib = get_lib()
+    src = _tobuf(data)
+    d = _tobuf(dictionary) if dictionary else None
+    dp = _as_u8p(d) if d is not None and d.size else None
+    dlen = int(d.size) if d is not None else 0
+    if expected_size is not None:
+        cap = max(1, expected_size)
+    else:
+        total, off = 0, 0
+        while off < len(data):
+            view = src[off:]
+            fsz = lib.atpu_zstd_frame_compressed_size(_as_u8p(view),
+                                                      len(data) - off)
+            csz = lib.atpu_zstd_frame_content_size(_as_u8p(view),
+                                                   len(data) - off)
+            if fsz <= 0 or csz < 0:
+                total = -1
+                break
+            total += int(csz)
+            off += int(fsz)
+        if total >= 0 and off == len(data):
+            cap = max(1, total)
+        else:
+            probe = lib.atpu_zstd_frame_content_size(_as_u8p(src), len(data))
+            cap = max(64, int(probe) * 2 + 64) if probe > 0 else \
+                max(64, 4 * len(data))
+    while True:
+        ref, outp = _alloc_out(cap)
+        n = lib.atpu_zstd_decompress(_as_u8p(src), len(data), outp, cap, dp,
+                                     dlen)
+        if n >= 0:
+            return _finish_out(ref, n)
+        if n == -2 and cap < (1 << 31):  # dst too small
+            cap *= 4
+            continue
+        if n == -4:
+            raise ValueError("zstd: content checksum mismatch")
+        if n == -3:
+            raise ValueError("zstd: bad dictionary")
+        raise ValueError("zstd: corrupt stream")
+
+
+# Columns of one block's plan row; must equal ops/zstd_decode_device's
+# PLAN_STRIDE (the PM_* layout of csrc/zstd_decode.cpp).
+_PLAN_STRIDE = 22
+_PLAN_MAXBLOCKS = 512
+
+
+def zstd_frame_plan(data: bytes, off: int = 0,
+                    max_blocks: int = _PLAN_MAXBLOCKS):
+    """Crack ONE zstd frame's headers into a device decode plan
+    (atpu_zstd_frame_plan). Returns (nblocks, meta, huf, fse, consumed):
+    nblocks == 0 for a skippable frame, -1 for a frame of more than
+    max_blocks blocks (the caller decodes it on the host); None when the
+    frame is corrupt. meta is int32 (nblocks, 22), huf uint16 (nblocks,
+    2048), fse uint32 (nblocks, 3, 512); offsets in meta are absolute."""
+    lib = get_lib()
+    view = np.frombuffer(data, dtype=np.uint8)[off:]
+    meta = np.zeros((max_blocks, _PLAN_STRIDE), np.int32)
+    huf = np.zeros((max_blocks, 2048), np.uint16)
+    fse = np.zeros((max_blocks, 3, 512), np.uint32)
+    consumed = _i64(0)
+    nb = lib.atpu_zstd_frame_plan(
+        _as_u8p(view), view.size, meta.ctypes.data_as(ctypes.POINTER(_i32)),
+        huf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        fse.ctypes.data_as(_u32p), max_blocks, ctypes.byref(consumed))
+    if nb == -2 and consumed.value > 0:   # more blocks than max_blocks
+        return -1, None, None, None, int(consumed.value)
+    if nb < 0:
+        return None
+    m = meta[:nb]
+    if nb and off:
+        # stream and section offsets are relative to the view; entries that
+        # are unused (zero) are shifted too, and never read
+        for col in (1, 7, 9, 11, 13, 16):  # PM_BOFF, PM_S*OFF, PM_SEQOFF
+            m[:, col] += off
+    return int(nb), m, huf[:nb], fse[:nb], int(consumed.value)

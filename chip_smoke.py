@@ -7,7 +7,7 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero before the last line:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build: nvcc for every CUDA source and the host C++ library, started
-     together;
+     together (ptxas's registers and shared memory of every kernel);
   3. every kernel against its plain PyTorch version, output for output:
      compact_rows (layout scan + bulk copy) at the main path's shapes
      (N=256 chunks of OUTCAP=65536, sizes from a real encode), at every
@@ -48,9 +48,21 @@ non-zero before the last line:
      by stdlib zlib.decompress after skip_rap_frame, the host deflate at
      levels 1 and 6 timed on the same corpus, and the launches and device
      time of the dynamic path's _kraft_lengths;
- 10. one JSON line listing every ported kernel, its launches summed over
-     the paths of phases 4 and 6-9;
- 11. last line: {"ok": true, "device": {...}}.
+ 10. zstd: setup("zstd", level=1, opt_var=2) on the same corpus (3
+     calls): audit, the compaction's and the FSE scan kernel's launches,
+     ratio and MB/s beside the host tier's at level 1, peak memory, the
+     16-block stream's sha256 against the JAX package's, per-stage device
+     times; device decode through the API (exact, audited, the two decode
+     scan kernels' launches, MB/s beside the host decoder's, frames on each
+     route) and its stage times; then each of the three scan kernels of
+     csrc/zstd_scan.cu against its plain loop on the first 16 blocks of the
+     batch's real inputs, its graph-replay time on the whole batch, its HBM
+     bound and its longest lane's serial steps (phase 3 holds the
+     compaction at the zstd shapes 1,024 x 23,040 and 256 x 82,432);
+ 11. one JSON line listing every ported kernel: compact_rows with its
+     launches summed over the paths of phases 4 and 6-10, the scan kernels
+     with theirs in phase 10;
+ 12. last line: {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -76,6 +88,7 @@ PINNED_CALLS = {
     "snappy": ("snappy", dict(opt_var=2)),
     "zlib level 1": ("zlib", dict(level=1, opt_var=2)),
     "zlib level 2": ("zlib", dict(level=2, opt_var=2)),
+    "zstd level 1": ("zstd", dict(level=1, opt_var=2)),
 }
 PINNED_SHA256 = {
     "snappy":
@@ -84,6 +97,8 @@ PINNED_SHA256 = {
         "51ef226de55f3aeb726ac0b60eed46d896a4723cd7bce433bbe8f079435e6b8c",
     "zlib level 2":
         "42f3edfe137731687ee84e4b661ad771d74d8699b34f26f5ac0460f6826d9a38",
+    "zstd level 1":
+        "f3389678928ff557b7981e31ab70e22573106ca4b71e3fa0a811ce6c851bcb99",
 }
 
 
@@ -160,7 +175,7 @@ def phase_card():
 
 
 def phase_build():
-    from aocl_compression_tpu_torch.ops import compact
+    from aocl_compression_tpu_torch.ops import compact, zstd_scan
     from aocl_compression_tpu_torch.runtime import native
 
     def timed(fn):
@@ -168,14 +183,17 @@ def phase_build():
         fn()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
         nvcc = ex.submit(timed, compact.build)
+        scan = ex.submit(timed, zstd_scan.build)
         host = ex.submit(timed, native.get_lib)
         print(f"[build] nvcc csrc/compact.cu (sm_90a): {nvcc.result():.2f} s; "
+              f"nvcc csrc/zstd_scan.cu (sm_90a): {scan.result():.2f} s; "
               f"host library (make -C csrc): {host.result():.2f} s")
-    for line in compact.build_log.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    for log in (compact.build_log, zstd_scan.build_log):
+        for line in log.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
 
 
 def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
@@ -458,17 +476,22 @@ def fmt_stages(stage):
     return ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items())
 
 
-def run_path(label, fn, hits_want, calls=3):
-    """fn() `calls` times with the audit on and the kernel counts set to 0
-    just before: (last result, best s, compact_rows launches, peak device
-    GB). Fails unless every audit name in hits_want was hit `calls` times."""
-    from aocl_compression_tpu_torch.ops import compact
+def run_path(label, fn, hits_want, calls=3, per_call=None):
+    """fn() `calls` times with the audit on and every kernel count
+    (compact.launches, zstd_scan.launches) set to 0 just before: (last
+    result, best s, compact_rows launches, peak device GB); the scan
+    kernels' counts stay in zstd_scan.launches for the caller to read.
+    Fails unless every audit name in hits_want was hit `calls` times (times
+    per_call[name] where given)."""
+    from aocl_compression_tpu_torch.ops import compact, zstd_scan
     from aocl_compression_tpu_torch.utils import dispatch
     fn()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.enable_audit(True)
     compact.launches = 0
+    for k in zstd_scan.launches:
+        zstd_scan.launches[k] = 0
     try:
         res, t = best_s(fn, calls)
         launches = compact.launches
@@ -479,8 +502,9 @@ def run_path(label, fn, hits_want, calls=3):
     print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
           f"compact_rows launches in {calls} calls: {launches}")
     for name in hits_want:
-        if hits.get(name) != calls:
-            raise AssertionError(f"{label}: {name} was not hit once per call")
+        if hits.get(name) != calls * (per_call or {}).get(name, 1):
+            raise AssertionError(f"{label}: {name} was not hit as often as "
+                                 f"the calls want")
     return res, t, launches, peak_gb
 
 
@@ -830,6 +854,257 @@ def phase_zlib(data: bytes, blocks, dev):
     return total
 
 
+def seq_stages(run, calls=3):
+    """run(rec) `calls` times, rec(stage) recording a CUDA event at each
+    stage mark in order: ({stage: [ms per call]}, resolve passes of the last
+    call, its result). The time between two marks is charged to the later
+    one, summed where a name repeats (the two fetches of the zstd encoder,
+    the resolve passes); a stage after a fetch's d2h is host work (the
+    stream is idle, so the events read the host's clock)."""
+    stage = {}
+    for _ in range(calls):
+        evs = []
+
+        def rec(k):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            evs.append((k, ev))
+
+        res = run(rec)
+        torch.cuda.synchronize()
+        per = {}
+        for (_, ea), (b, eb) in zip(evs, evs[1:]):
+            per[b] = per.get(b, 0.0) + ea.elapsed_time(eb)
+        for k, v in per.items():
+            stage.setdefault(k, []).append(v)
+    passes = sum(1 for k, _ in evs if k == "resolve_pass")
+    return stage, passes, res
+
+
+def capture(module, name, run):
+    """The arguments of every module.name(...) call while run() runs."""
+    seen = []
+    orig = getattr(module, name)
+
+    def wrapped(*args):
+        seen.append(args)
+        return orig(*args)
+
+    setattr(module, name, wrapped)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return seen
+
+
+SCAN_SLICE = 16   # blocks the plain loops run on (they launch per step)
+
+
+def check_scan(label, kernel, plain, args, cut, compare, bound):
+    """A scan kernel against its plain loop on the first SCAN_SLICE blocks
+    of the batch's real inputs, and the kernel's graph-replay time on the
+    whole batch: dict(max_abs_err, ms, plain_ms, bound_ms, steps)."""
+    sl = cut(args)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = plain(*sl)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    got = kernel(*sl)
+    torch.cuda.synchronize()
+    err = compare(got, want)
+    if err:
+        raise AssertionError(f"{label} differs from its plain loop: "
+                             f"max_abs_err {err}")
+    ms = graph_ms(lambda: kernel(*args), reps=3, replays=5)
+    nbytes, steps = bound(args)
+    print(f"[zstd kernel] {label} vs plain on the batch's first {SCAN_SLICE}"
+          f" blocks: equal; kernel {ms:.4f} ms on the whole batch "
+          f"(CUDA-graph replay), plain loop {plain_ms:.2f} ms on the "
+          f"{SCAN_SLICE}-block slice (one call, device events), bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B at 3.35 "
+          f"TB/s), longest lane {steps} serial steps")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, steps=steps)
+
+
+def max_err(got, want, live=None):
+    err = 0
+    for g, w in zip(got, want):
+        d = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        if live is not None:
+            d = d[live]
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def phase_zstd(data: bytes, blocks, dev):
+    """setup("zstd", level=1, opt_var=2): the level-1 device encoder (G=4,
+    depth 8, nw 16, per-block Huffman and FSE tables) and, with device
+    decode on, the device decoder; the three scan kernels against their
+    plain loops on the batch's real inputs."""
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch.codecs.zstd import (_device_frames,
+                                                        _host_decode)
+    from aocl_compression_tpu_torch.ops import zstd_decode_device as zdd
+    from aocl_compression_tpu_torch.ops import zstd_device as zd
+    from aocl_compression_tpu_torch.ops import zstd_scan
+    from aocl_compression_tpu_torch.runtime import native
+
+    mb = len(data) / 1e6
+    method, kw = PINNED_CALLS["zstd level 1"]
+    h = act.setup(method, block_size=B, **kw)
+    c, c_s, launches, peak_gb = run_path(
+        "zstd", lambda: act.compress(h, data),
+        ("zstd_compress_blocks_torch", "fetch_chunks_kernel"),
+        per_call={"fetch_chunks_kernel": 2})
+    enc = dict(zstd_scan.launches)
+    if launches != 2 * 2 * 3 or enc["fse_encode_scan"] != 3:
+        raise AssertionError("zstd: the compaction (2 fetches) or the FSE "
+                             "scan kernel did not launch once per call")
+    d, d_s = best_s(lambda: act.decompress(h, c))
+    if d != data or native.zstd_decompress(c) != data:
+        raise AssertionError("zstd: host decode did not return the input")
+    hh = act.setup("zstd", level=1, block_size=B)
+    ch, ch_s = best_s(lambda: act.compress(hh, data))
+    print(f"[zstd] setup('zstd', level=1, opt_var=2, block_size={B}) on "
+          f"{h.device}: {len(data)} B -> {len(c)} B, ratio "
+          f"{len(data) / len(c):.4f} (host tier at level 1: {len(ch)} B, "
+          f"ratio {len(data) / len(ch):.4f}, {mb / ch_s:.2f} MB/s, best of "
+          f"3); compress {mb / c_s:.2f} MB/s (best of 3, {c_s * 1e3:.2f} "
+          f"ms); host decode {mb / d_s:.2f} MB/s; round trip exact through "
+          f"the API and the host decoder; peak device memory {peak_gb:.2f} "
+          f"GB; kernel launches in 3 calls: compact_rows {launches}, "
+          f"fse_encode_scan {enc['fse_encode_scan']}")
+    check_pinned("zstd level 1", act.compress(h, data[:PINNED_BLOCKS * B]))
+
+    stage, _, frames = seq_stages(
+        lambda rec: _device_frames(blocks, 1, dev, mark=rec))
+    if rap_zstd(frames, blocks) != c:
+        raise AssertionError("zstd: staged device tier stream differs from "
+                             "the API's")
+    print("[zstd] stage times, ms (min of 3; device events; the fetch "
+          "stages sum both fetches; assemble = the host's frames after the "
+          "fetches): " + fmt_stages(stage))
+
+    # device decode through the API, beside the host decoder
+    act.set_config(device_decode=True)
+    try:
+        dd, dd_s, dlaunches, dpeak_gb = run_path(
+            "decode zstd", lambda: act.decompress(h, c),
+            ("zstd_decompress_blocks_torch", "fetch_chunks_kernel"))
+    finally:
+        act.set_config(device_decode=False)
+    dec = dict(zstd_scan.launches)
+    if dd != data:
+        raise AssertionError("zstd: device decode did not return the input")
+    if (dlaunches != 2 * 3 or dec["huf_literal_scan"] != 3
+            or dec["fse_sequence_scan"] != 3):
+        raise AssertionError("decode zstd: a kernel did not launch once per "
+                             "call")
+    offs, lens_, dlens = native.rap_parse(c[8:])
+    chunks = [c[8 + int(o):8 + int(o) + int(n)] for o, n in zip(offs, lens_)]
+    dl = [int(x) for x in dlens]
+    hosted = []
+
+    def host_count(frame):
+        hosted.append(len(frame))
+        return _host_decode(frame)
+
+    stage, passes, got = seq_stages(lambda rec: zdd.decode_chunks(
+        chunks, dl, device=dev, host_decode=host_count, mark=rec))
+    if b"".join(got) != data:
+        raise AssertionError("decode zstd: staged decode differs")
+    print(f"[decode zstd] {len(c)} B stream: device decode {mb / dd_s:.2f} "
+          f"MB/s (best of 3, {dd_s * 1e3:.2f} ms), host decoder "
+          f"{mb / d_s:.2f} MB/s (best of 3); exact; {len(chunks) - len(hosted) // 3}"
+          f" of {len(chunks)} frames on the device, {len(hosted) // 3} to the"
+          f" host decoder (raw blocks, or raw literals past the stream "
+          f"cap); peak device memory {dpeak_gb:.2f} GB; kernel launches in 3 "
+          f"calls: compact_rows {dlaunches}, huf_literal_scan "
+          f"{dec['huf_literal_scan']}, fse_sequence_scan "
+          f"{dec['fse_sequence_scan']}")
+    print(f"[decode zstd] stage times, ms (min of 3; device events; plan = "
+          f"the host's frame plans; {passes} resolve passes): "
+          + fmt_stages(stage))
+
+    # the scan kernels on the batch's real inputs
+    enc_args = capture(zd, "_fse_scan", lambda: zd.encode_blocks(
+        blocks, 1, device=dev))[0]
+    lit_args = capture(zdd, "_literal_scan", lambda: zdd.decode_chunks(
+        chunks, dl, device=dev, host_decode=_host_decode))[0]
+    seq_args = capture(zdd, "_sequence_scan", lambda: zdd.decode_chunks(
+        chunks, dl, device=dev, host_decode=_host_decode))[0]
+    k = SCAN_SLICE
+    stats = {}
+
+    def fse_bound(a):
+        xs, nseq, nxt, dnb, dfs = a
+        n_, maxseq = xs.shape[:2]
+        used = int(nseq.sum())
+        nbytes = (used * 8 * 4 + 4 * n_ + 4 * (nxt[0].numel() + dnb[0].numel()
+                                              + dfs[0].numel()) * n_
+                  + 2 * n_ * maxseq * 6 * 4 + n_ * 3 * 4)
+        return nbytes, int(nseq.max())
+
+    stats["fse_encode_scan"] = check_scan(
+        "fse_encode_scan", zd._fse_scan, zd._fse_scan_plain, enc_args,
+        lambda a: [t[:k] for t in a], max_err, fse_bound)
+
+    L = lit_args[0].shape[0]
+    maxl = lit_args[5]
+
+    def lit_cut(a):
+        return [t[:4 * k] for t in a[:3]] + [a[3][:k], a[4][:4 * k], a[5]]
+
+    def lit_cmp(got, want):
+        live = (torch.arange(maxl, device=dev)[None]
+                < torch.clamp(lit_args[2][:4 * k], max=maxl)[:, None])
+        return max_err([got], [want], live)
+
+    def lit_bound(a):
+        cnt = torch.clamp(a[2], max=maxl)
+        nbytes = (int(a[1].sum()) + 3 * 4 * L + a[3].numel() * 4
+                  + int(cnt.sum()))
+        return nbytes, int(cnt.max())
+
+    stats["huf_literal_scan"] = check_scan(
+        "huf_literal_scan", zdd._literal_scan, zdd._literal_scan_plain,
+        lit_args, lit_cut, lit_cmp, lit_bound)
+
+    def seq_cut(a):
+        return [t[:k] for t in a[:7]] + [a[7]]
+
+    def seq_bound(a):
+        n_, maxseq = a[0].shape[0], a[7]
+        nbytes = (int(a[1].sum()) + 2 * 4 * n_ + a[3].numel() * 4
+                  + 3 * 4 * n_ + 3 * 4 * n_ * maxseq)
+        return nbytes, int(a[2].max())
+
+    stats["fse_sequence_scan"] = check_scan(
+        "fse_sequence_scan", zdd._sequence_scan, zdd._sequence_scan_plain,
+        seq_args, seq_cut, max_err, seq_bound)
+    for name in stats:
+        stats[name]["launches"] = enc.get(name, 0) + dec.get(name, 0)
+    return launches + dlaunches, stats
+
+
+def rap_zstd(frames, blocks):
+    """The RAP stream the zstd codec writes: the RAP frame inside a
+    skippable frame, then the frames."""
+    import struct
+
+    from aocl_compression_tpu_torch.runtime import native
+    offsets = np.cumsum([0] + [len(x) for x in frames[:-1]])
+    rap = native.rap_write(len(frames), offsets + native.rap_frame_len(
+        len(frames)), [len(x) for x in frames], [len(b) for b in blocks])
+    return struct.pack("<II", 0x184D2A50, len(rap)) + rap + b"".join(frames)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -838,7 +1113,7 @@ def main():
     import aocl_compression_tpu_torch  # noqa: F401  (fails outside the repo)
     from aocl_compression_tpu_torch.ops import lz4_device
 
-    name = phase_card()
+    kind = phase_card()
     phase_build()
 
     data = corpus(B * N)
@@ -871,6 +1146,14 @@ def main():
     add_slice("the dynamic deflate bodies", dyn_out, torch.clamp(
         (bits + 7) // 8 + 1, max=dyn_out.shape[1]).to(torch.int32))
     del dyn_out, bits
+    # the zstd encoder's two fetches, at the sizes encode_blocks passes
+    from aocl_compression_tpu_torch.ops import zstd_device as zd
+    zo = zd.make_encoder(B, 4)(arr, lens)
+    scap = zd.stream_cap(B)
+    slices[f"the zstd literal streams, N={4 * N} x OUTCAP={scap}"] = (
+        zo[0].reshape(4 * N, scap), ((zo[1].reshape(-1) + 7) // 8) * 8)
+    add_slice("the zstd sequence sections", zo[4], ((zo[5] + 7) // 8) * 8)
+    del zo
     kernel = phase_kernel(out, sizes, slices)
     del slices
     paths = {}
@@ -881,6 +1164,8 @@ def main():
         data, {"lz4": c_lz4, "lz4hc": c_hc}, dev)
     paths["snappy encode + device decode"] = phase_snappy(data, blocks, dev)
     paths["zlib levels 1 and 2"] = phase_zlib(data, blocks, dev)
+    paths["zstd level 1 encode + device decode"], scans = phase_zstd(
+        data, blocks, dev)
     print("[paths] compact_rows launches: " + ", ".join(
         f"{k} {v}" for k, v in paths.items()))
 
@@ -889,9 +1174,23 @@ def main():
                     replaces="aocl_compression_tpu/ops/compact.py:47",
                     launches=sum(paths.values()), bound_by="bytes",
                     **kernel)]
+    replaces = {
+        "fse_encode_scan": "aocl_compression_tpu/ops/zstd_device.py:491",
+        "huf_literal_scan":
+            "aocl_compression_tpu/ops/zstd_decode_device.py:114",
+        "fse_sequence_scan":
+            "aocl_compression_tpu/ops/zstd_decode_device.py:143"}
+    for name, st in scans.items():
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aocl_compression_tpu_torch/csrc/zstd_scan.cu",
+            replaces=replaces[name], launches=st["launches"],
+            max_abs_err=st["max_abs_err"], ms=st["ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by="bytes", library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -4,6 +4,7 @@ the port on device="cpu") and on the host tier, round trips, the dispatch
 audit, and device resolution."""
 
 import random
+import struct
 
 import numpy as np
 import pytest
@@ -127,7 +128,7 @@ def test_default_device_is_cuda():
 
 def test_unported_method_unsupported():
     with pytest.raises(act.CompressionError) as e:
-        act.setup("zstd", device="cpu")
+        act.setup("bzip2", device="cpu")
     assert e.value.code == act.ErrorCode.UNSUPPORTED_METHOD
     assert act.version() != actpu.version()
     assert act.compress_bound("lz4", 1 << 20) == actpu.compress_bound(
@@ -419,3 +420,96 @@ def test_new_paths_default_device_is_cuda():
         else:
             with pytest.raises(RuntimeError):
                 act.setup(method, **kw)
+
+
+# --- zstd ----------------------------------------------------------------------
+
+def _audited(fn):
+    tdispatch.enable_audit(True)
+    try:
+        out = fn()
+        return out, tdispatch.audit_hits()
+    finally:
+        tdispatch.enable_audit(False)
+
+
+@pytest.mark.parametrize("block_size", [4096, 8192])
+@pytest.mark.parametrize("kind", ["text", "mixed"])
+def test_zstd_device_tier_stream_identical(device_tier, monkeypatch, kind,
+                                           block_size):
+    """setup("zstd", level=1, opt_var=2): the RAP stream inside its
+    skippable frame is byte-identical to the JAX package's, audited on the
+    device tier, and decodes exactly through the host decoder and, with
+    device decode on, through the port's device decoder."""
+    kw = dict(level=1, opt_var=2, block_size=block_size)
+    data = _data(kind) * 4
+    ref = actpu.compress(actpu.setup("zstd", **kw), data)
+    h = act.setup("zstd", device="cpu", **kw)
+    c, hits = _audited(lambda: act.compress(h, data))
+    assert hits.get("zstd_compress_blocks_torch") == 1
+    assert hits.get("fetch_chunks_torch") == 2   # streams, sections
+    assert c == ref
+    assert struct.unpack_from("<I", c)[0] == 0x184D2A50
+    assert native.zstd_decompress(c) == data     # skippable frame skipped
+    d, hits = _audited(lambda: act.decompress(h, c))
+    assert d == data and "zstd_decompress_blocks_host" in hits
+    monkeypatch.setenv("AOCL_DEVICE_DECODE", "1")
+    d, hits = _audited(lambda: act.decompress(h, c))
+    assert d == data
+    assert hits.get("zstd_decompress_blocks_torch") == 1, hits
+    assert act.decompress(h, ref) == data
+
+
+def test_zstd_single_shot_and_unknown_skippable(device_tier, monkeypatch):
+    """Without RAP: the concatenated device frames (the JAX package's
+    bytes); an unknown skippable frame in front is skipped on decode, by
+    the host and by the device decoder."""
+    data = _data("text")[:3000]
+    kw = dict(level=1, opt_var=2, enable_rap=False)
+    ref = actpu.compress(actpu.setup("zstd", **kw), data)
+    h = act.setup("zstd", device="cpu", **kw)
+    c, hits = _audited(lambda: act.compress(h, data))
+    assert c == ref and hits.get("zstd_compress_torch") == 1
+    skip = struct.pack("<II", 0x184D2A5E, 3) + b"abc"
+    assert act.decompress(h, skip + c) == data
+    monkeypatch.setenv("AOCL_DEVICE_DECODE", "1")
+    d, hits = _audited(lambda: act.decompress(h, skip + c))
+    assert d == data and hits.get("zstd_decompress_torch") == 1
+
+
+@pytest.mark.parametrize("case", ["level3", "dictionary"])
+def test_zstd_level3_and_dictionary_stay_on_host(device_tier, monkeypatch,
+                                                 case):
+    """Levels >= 2 and any dictionary keep the host tier, as in the JAX
+    package: the same stream, audited as the host tier, also with device
+    decode on."""
+    data = _data("mixed") * 4
+    kw = (dict(level=3, opt_var=2, block_size=4096) if case == "level3"
+          else dict(level=1, opt_var=2, block_size=4096,
+                    dictionary=_data("text")[:2000]))
+    ref = actpu.compress(actpu.setup("zstd", **kw), data)
+    h = act.setup("zstd", device="cpu", **kw)
+    c, hits = _audited(lambda: act.compress(h, data))
+    assert c == ref
+    assert hits.get("zstd_compress_blocks_host") == 1
+    assert not any(k.endswith("_torch") for k in hits), hits
+    monkeypatch.setenv("AOCL_DEVICE_DECODE", "1")
+    d, hits = _audited(lambda: act.decompress(h, c))
+    assert d == data
+    want = ("zstd_decompress_blocks_host" if case == "dictionary"
+            else "zstd_decompress_blocks_torch")
+    assert want in hits, hits
+
+
+def test_zstd_host_tier_and_default_device():
+    data = _data("mixed") * 4
+    for kw in (dict(level=1, block_size=4096), dict(level=19)):
+        ref = actpu.compress(actpu.setup("zstd", **kw), data)
+        h = act.setup("zstd", device="cpu", **kw)
+        c = act.compress(h, data)
+        assert c == ref and act.decompress(h, c) == data
+    if torch.cuda.is_available():
+        assert act.setup("zstd", opt_var=2).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            act.setup("zstd", opt_var=2)

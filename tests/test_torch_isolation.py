@@ -24,21 +24,27 @@ class Blocker:
 sys.meta_path.insert(0, Blocker())
 import aocl_compression_tpu_torch as act
 from aocl_compression_tpu_torch.ops import (compact, deflate_device,  # noqa
-                                            lz4_device, snappy_device)
+                                            lz4_device, snappy_device,
+                                            zstd_decode_device, zstd_device,
+                                            zstd_scan)
 from aocl_compression_tpu_torch.codecs import (snappy,  # noqa
-                                               zlib_bzip2_lzma)
+                                               zlib_bzip2_lzma, zstd,
+                                               zstd_format)
 from aocl_compression_tpu_torch.parallel import container
 from aocl_compression_tpu_torch.utils import calibration  # noqa
 import zlib
 data = (b"the block hash match stream " * 200)[:4000]
 act.set_config(device_decode=True)
 for method, kw in (("lz4", {}), ("snappy", {}), ("zlib", dict(level=1)),
-                   ("zlib", dict(level=2))):
+                   ("zlib", dict(level=2)), ("zstd", dict(level=1))):
     h = act.setup(method, opt_var=2, block_size=1024, device="cpu", **kw)
     c = act.compress(h, data)
     assert act.decompress(h, c) == data
     if method == "zlib":
         assert zlib.decompress(container.skip_rap_frame(c)) == data
+    if method == "zstd":
+        from aocl_compression_tpu_torch.runtime import native
+        assert native.zstd_decompress(c) == data
 assert not any(m == "jax" or m.startswith("aocl_compression_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

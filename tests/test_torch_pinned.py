@@ -1,5 +1,6 @@
-"""The sha256 constants chip_smoke.py holds the port's snappy and zlib
-streams against on the card (PINNED_SHA256 there) are the JAX package's.
+"""The sha256 constants chip_smoke.py holds the port's snappy, zlib and
+zstd streams against on the card (PINNED_SHA256 there) are the JAX
+package's.
 
 For each pinned call, the JAX package at its device tier
 (AOCL_ENABLE_INSTRUCTIONS=XLA, JAX on the CPU) compresses the first
