@@ -3,10 +3,11 @@
 The same unified API, handle, tier dispatch and RAP streams as the JAX
 package, on torch tensors. Device tiers run on an NVIDIA GPU; hot stages
 that were Pallas kernels are hand-written CUDA kernels
-(aocl_compression_tpu_torch/csrc). Codecs are ported slice by slice; this
-package currently carries lz4 and lz4hc (device encode and decode), snappy
-(device encode and decode), zlib (device encode at levels 1 and 2) and
-zstd (device encode at level 1, device decode).
+(aocl_compression_tpu_torch/csrc). All seven codecs run through the API:
+lz4 and lz4hc (device encode and decode), snappy (device encode and
+decode), zlib (device encode at levels 1 and 2, device inflate), zstd
+(device encode at level 1, device decode), bzip2 (device block sort) and
+lzma (device match-finder assist), each beside its host tier.
 
 Quick start:
 

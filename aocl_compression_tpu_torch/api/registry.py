@@ -1,9 +1,10 @@
 """Codec registry — method enum -> codec instance.
 
 Parity with the reference's static aocl_codec[] table (api/codec.h:155-174).
-The enum lists all seven methods; a method whose port has not landed yet
-raises UNSUPPORTED_METHOD at setup. Excluded codecs (config.enabled_codecs)
-raise EXCLUDED_METHOD, like the reference's compile-time exclusion.
+The enum lists all seven methods, and all seven are registered; an unknown
+method raises UNSUPPORTED_METHOD at setup. Excluded codecs
+(config.enabled_codecs) raise EXCLUDED_METHOD, like the reference's
+compile-time exclusion.
 """
 
 from __future__ import annotations
@@ -35,10 +36,10 @@ def _build_registry() -> None:
     from ..codecs.lz4 import Lz4Codec
     from ..codecs.lz4hc import Lz4hcCodec
     from ..codecs.snappy import SnappyCodec
-    from ..codecs.zlib_bzip2_lzma import ZlibCodec
+    from ..codecs.zlib_bzip2_lzma import Bzip2Codec, LzmaCodec, ZlibCodec
     from ..codecs.zstd import ZstdCodec
     for codec in (Lz4Codec(), Lz4hcCodec(), SnappyCodec(), ZlibCodec(),
-                  ZstdCodec()):
+                  ZstdCodec(), Bzip2Codec(), LzmaCodec()):
         _codecs[codec.name] = codec
 
 

@@ -57,8 +57,11 @@ class Lz4Codec(Codec):
     def _adapter(self, handle: Handle) -> container.BlockCodecAdapter:
         accel = max(1, handle.opt_var)
         # the device pipeline is the throughput mode (tile-anchor parse);
-        # accel<=1 keeps the serial-greedy ratio semantics on the host tier
-        cap = handle.max_tier if accel >= 2 else TIER_HOST
+        # accel<=1 keeps the serial-greedy ratio semantics on the host tier.
+        # num_shards > 1 requests the multi-device tier, which the TORCH
+        # tier serves until MULTI is ported
+        cap = (handle.max_tier if accel >= 2 or handle.num_shards > 1
+               else TIER_HOST)
         cb, ctier = dispatch.resolve_with_tier(
             self.name, "compress_blocks", cap, handle.opt_off)
         if ctier == TIER_HOST:

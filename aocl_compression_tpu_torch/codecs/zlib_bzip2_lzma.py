@@ -1,25 +1,35 @@
-"""zlib codec (bzip2 and lzma are not ported yet).
+"""zlib, bzip2 and lzma codecs.
 
 Tiers:
-  HOST  — own C++ deflate levels 1-9 and inflate (csrc/deflate.cpp) via
-          ctypes.
-  TORCH — the device deflate encoders (ops/deflate_device.py) on the
-          handle's device: level 1 as static-Huffman blocks (the
-          reference's deflate_quick), level 2 as dynamic-Huffman blocks
-          (deflate_medium's dynamic blocks); levels 3-9 stay on the host.
-Decode runs on the host inflate. The JAX package's device inflate
-(ops/inflate_device.py) is not ported yet: with AOCL_DEVICE_DECODE=1 the
-port's zlib decode still goes to the host tier.
+  HOST  — own C++ codecs via ctypes: deflate levels 1-9 and inflate
+          (csrc/deflate.cpp); bzip2 (csrc/bzip2.cpp: RLE1, BWT, MTF, RLE2,
+          multi-table Huffman); lzma (csrc/lzma.cpp: range coder and
+          hash-chain match finder, the FORMAT_ALONE layout).
+  TORCH — on the handle's device: the deflate encoders
+          (ops/deflate_device.py; level 1 as static-Huffman blocks, the
+          reference's deflate_quick, level 2 as dynamic-Huffman blocks,
+          deflate_medium's; levels 3-9 stay on the host); the device
+          inflate (ops/inflate_device.py, with the hand kernel of
+          csrc/inflate_scan.cu for its symbol scan) for RAP decode when
+          device decode is enabled; the bzip2 block sort as prefix-doubling
+          sorts (ops/bwt_device.py), with RLE1, the CRCs and the entropy
+          stages on the host; and the lzma match-finder assist
+          (ops/lzma_assist.py), whose elected sequences the host range
+          coder encodes. bzip2 and lzma decode on the host.
 
-The device tier is used on an explicit opt-in only (device_opt_in);
+The device tiers are used on an explicit opt-in only (device_opt_in);
 otherwise dispatch routes by measured speed (utils.calibration), whose
-table is empty in the port, so the host tier runs.
+table is empty in the port, so the host tiers run.
 
-The host and fallback routes of the device tier are the JAX package's,
+The host and fallback routes of the device tiers are the JAX package's,
 each taken through the dispatch registry so the audit names it: blocks
-over 64 KiB and single-shot inputs under 1 KiB go to the host deflate,
-and a block whose dynamic code fails its Kraft fixup is re-encoded as a
-static block on the device ("zlib_compress_static_torch").
+over 64 KiB, single-shot zlib inputs under 1 KiB and bzip2 / lzma inputs
+under 4 KiB go to the host encoders; a block whose dynamic code fails its
+Kraft fixup is re-encoded as a static block on the device
+("zlib_compress_static_torch"); RAP chunks that decode to more than 64
+KiB go to the host inflate, and chunks the device inflate does not take
+(a stored or corrupt first block, multi-block chunks, short decodes) to
+"zlib_inflate_chunk_host" one by one.
 """
 
 from __future__ import annotations
@@ -94,12 +104,18 @@ class ZlibCodec(Codec):
                 return cb(blocks, level, handle.device,
                           mem_limit=handle.mem_limit or None)
         dcap = handle.max_tier if device_decode_enabled() else TIER_HOST
-        db = dispatch.resolve("zlib", "decompress_blocks", dcap,
-                              handle.opt_off)
+        db, dtier = dispatch.resolve_with_tier("zlib", "decompress_blocks",
+                                               dcap, handle.opt_off)
+        if dtier == TIER_HOST:
+            def decompress(chunks, dlens):
+                return db(chunks, dlens, workers=handle.num_shards or None)
+        else:
+            # mem_limit caps the output bytes per device batch
+            def decompress(chunks, dlens):
+                return db(chunks, dlens, handle.device,
+                          mem_limit=handle.mem_limit or None)
         return container.BlockCodecAdapter(
-            compress_blocks=compress,
-            decompress_blocks=lambda chunks, dlens: db(
-                chunks, dlens, workers=handle.num_shards or None),
+            compress_blocks=compress, decompress_blocks=decompress,
             preamble=lambda total: ZLIB_HEADER)
 
     def compress(self, handle: Handle, data: bytes) -> bytes:
@@ -172,7 +188,15 @@ def _zlib_decompress_blocks_host(chunks, dlens, workers=None):
         total_bytes=int(sum(dlens)))
 
 
-# --- device-tier variants (ops/deflate_device.py) -----------------------------
+@dispatch.register("zlib", "inflate_chunk", TIER_HOST,
+                   "zlib_inflate_chunk_host")
+def _zlib_inflate_chunk_host(chunk: bytes, dlen: int) -> bytes:
+    """One raw RAP chunk on the host inflate: the device inflate's route
+    for a chunk it does not take."""
+    return native.inflate(chunk, dlen, raw=True)
+
+
+# --- device-tier variants (ops/deflate_device.py, ops/inflate_device.py) ----
 
 @dispatch.register("zlib", "compress_static", TIER_TORCH,
                    "zlib_compress_static_torch")
@@ -223,3 +247,160 @@ def _zlib_compress_torch(data: bytes, level: int, device) -> bytes:
     bs = min(get_config().default_block_size, 1 << 16)
     chunks = _device_chunks(container.split_blocks(data, bs), level, device)
     return ZLIB_HEADER + b"".join(chunks) + _trailer(data)
+
+
+def _inflate_host(chunk: bytes, dlen: int) -> bytes:
+    return dispatch.resolve_host("zlib", "inflate_chunk")(chunk, dlen)
+
+
+@dispatch.register("zlib", "decompress_blocks", TIER_TORCH,
+                   "zlib_decompress_blocks_torch")
+def _zlib_decompress_blocks_torch(chunks, dlens, device, mem_limit=None):
+    """Device inflate of RAP chunks (ops/inflate_device.py): the host
+    plans each chunk's first block, the device decodes its symbols and
+    executes the LZ77 sequences; chunks it does not take decode on the
+    host one by one. Opt-in through device decode, as lz4, snappy and zstd
+    device decode are."""
+    from ..ops import inflate_device, lz4_device
+    if max(dlens, default=0) > lz4_device.MAX_DEVICE_BLOCK:
+        return dispatch.resolve_host("zlib", "decompress_blocks")(chunks,
+                                                                  dlens)
+    return inflate_device.decode_chunks(
+        list(chunks), [int(d) for d in dlens], device=device,
+        host_one=_inflate_host, mem_limit=mem_limit)
+
+
+# --- bzip2 -----------------------------------------------------------------------
+
+class Bzip2Codec(Codec):
+    """bzip2 (reference: BZ2_bzBuffToBuffCompress; level = blockSize100k
+    1-9)."""
+
+    name = "bzip2"
+    version = "1.0.8-tpu"
+    min_level, max_level, default_level = 1, 9, 9
+
+    def compress_bound(self, n: int) -> int:
+        # reference bound: n + n/100 + 600 (BZ2_bzBuffToBuffCompress docs)
+        return n + (n // 100) + 600
+
+    def compress(self, handle: Handle, data: bytes) -> bytes:
+        fn, tier = dispatch.resolve_with_tier(
+            "bzip2", "compress", handle.max_tier, handle.opt_off,
+            calibrated=not device_opt_in(handle))
+        level = self.clamp_level(handle.level or self.default_level)
+        if tier != TIER_HOST:
+            return fn(data, level, handle.device)
+        block = 100_000 * level
+        if not handle.opt_off and len(data) > 2 * block:
+            # fan-out as CONCATENATED .bz2 streams (the format's own
+            # multi-stream rule, the pbzip2 layout): each worker compresses
+            # whole blockSize100k chunks, so every block's BWT context and
+            # the ratio are the serial encoder's (reference analog: the
+            # per-thread partitions of threads/threads.c)
+            from ..parallel import host_pool
+            chunks = [data[i:i + block] for i in range(0, len(data), block)]
+            return b"".join(host_pool.parallel_map(
+                lambda ch: fn(ch, level), chunks, workers=handle.num_shards,
+                total_bytes=len(data)))
+        return fn(data, level)
+
+    def decompress(self, handle: Handle, data: bytes,
+                   expected_size: Optional[int] = None) -> bytes:
+        fn = dispatch.resolve("bzip2", "decompress", handle.max_tier,
+                              handle.opt_off)
+        return fn(data, expected_size)
+
+
+@dispatch.register("bzip2", "compress", TIER_HOST, "bzip2_compress_host")
+def _bzip2_compress_host(data: bytes, level: int) -> bytes:
+    return native.bz2_compress(data, level)
+
+
+@dispatch.register("bzip2", "decompress", TIER_HOST, "bzip2_decompress_host")
+def _bzip2_decompress_host(data: bytes, expected_size=None) -> bytes:
+    return native.bz2_decompress(data, expected_size)
+
+
+@dispatch.register("bzip2", "compress", TIER_TORCH, "bzip2_compress_torch")
+def _bzip2_compress_torch(data: bytes, level: int, device,
+                          mark=_no_mark) -> bytes:
+    """Device-BWT tier: RLE1, the block split and the CRCs on the host
+    (bz2_prepare), the block sort of each block on `device`
+    (ops/bwt_device.bwt), MTF, RLE2 and Huffman back on the host
+    (bz2_emit). mark(stage) is called at "start", after "prepare", each
+    block's "bwt" and "emit"."""
+    from ..ops import bwt_device
+    if len(data) < 4096:  # device dispatch overhead dwarfs tiny inputs
+        return dispatch.resolve_host("bzip2", "compress")(data, level)
+    mark("start")
+    rle, offs, lens, crcs = native.bz2_prepare(data, level)
+    mark("prepare")
+    Ls, origs = [], []
+    for off, ln in zip(offs, lens):
+        if ln == 0:
+            continue
+        L, I = bwt_device.bwt(rle[off:off + ln].tobytes(), device)
+        mark("bwt")
+        Ls.append(L)
+        origs.append(I)
+    keep = lens > 0
+    out = native.bz2_emit(level, b"".join(Ls), lens[keep], origs, crcs[keep])
+    mark("emit")
+    return out
+
+
+# --- lzma ------------------------------------------------------------------------
+
+class LzmaCodec(Codec):
+    """lzma, the FORMAT_ALONE stream (reference adapter: the 5-byte props
+    header spliced before the stream, api/codec.cpp:206-243)."""
+
+    name = "lzma"
+    version = "22.01-tpu"
+    min_level, max_level, default_level = 0, 9, 6
+
+    def compress_bound(self, n: int) -> int:
+        # reference: inSize + inSize/3 + 128 style slack + 13 B header
+        return n + (n // 3) + 128 + 13
+
+    def compress(self, handle: Handle, data: bytes) -> bytes:
+        fn, tier = dispatch.resolve_with_tier(
+            "lzma", "compress", handle.max_tier, handle.opt_off,
+            calibrated=not device_opt_in(handle))
+        level = self.clamp_level(handle.level or self.default_level)
+        if tier == TIER_HOST:
+            return fn(data, level)
+        # mem_limit caps the input bytes per device batch
+        return fn(data, level, handle.device,
+                  mem_limit=handle.mem_limit or None)
+
+    def decompress(self, handle: Handle, data: bytes,
+                   expected_size: Optional[int] = None) -> bytes:
+        fn = dispatch.resolve("lzma", "decompress", handle.max_tier,
+                              handle.opt_off)
+        return fn(data, expected_size)
+
+
+@dispatch.register("lzma", "compress", TIER_HOST, "lzma_compress_host")
+def _lzma_compress_host(data: bytes, level: int) -> bytes:
+    return native.lzma_compress(data, level)
+
+
+@dispatch.register("lzma", "decompress", TIER_HOST, "lzma_decompress_host")
+def _lzma_decompress_host(data: bytes, expected_size=None) -> bytes:
+    return native.lzma_decompress(data, expected_size)
+
+
+@dispatch.register("lzma", "compress", TIER_TORCH, "lzma_compress_torch")
+def _lzma_compress_torch(data: bytes, level: int, device, mem_limit=None,
+                         mark=_no_mark) -> bytes:
+    """Device match-finder assist (ops/lzma_assist.py): the device elects
+    (pos, len, dist) sequences per 64 KiB block, the LzFind.c stage, and
+    the host range coder encodes candidate-driven. Matches cannot cross
+    64 KiB blocks, so the ratio trails the host tier's."""
+    from ..ops import lzma_assist
+    if len(data) < 4096:  # device dispatch overhead dwarfs tiny inputs
+        return dispatch.resolve_host("lzma", "compress")(data, level)
+    return lzma_assist.compress(data, level, device=device,
+                                mem_limit=mem_limit, mark=mark)

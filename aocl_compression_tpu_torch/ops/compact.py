@@ -225,8 +225,9 @@ def fetch_chunks(bodies: torch.Tensor, sizes: torch.Tensor,
     """Compact on the device, fetch once, slice per-chunk byte strings.
 
     Routed through the dispatch registry so the compactor is an auditable
-    tier (KERNEL mirrors the JAX package's fetch_chunks_pallas, TORCH its
-    fetch_chunks_xla); both run the kernels on a CUDA tensor. mark is
+    tier: KERNEL (the JAX package's fetch_chunks_pallas) runs the kernels
+    on a CUDA tensor; TORCH (its fetch_chunks_xla) runs the plain version
+    on any device, so a TORCH cap launches no compaction kernel. mark is
     _fetch_impl's stage hook."""
     from ..utils import dispatch
     fn = dispatch.resolve("container", "fetch_chunks", None)
@@ -241,17 +242,18 @@ def _to_pinned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _fetch_impl(bodies: torch.Tensor, sizes: torch.Tensor,
-                mark=_no_mark) -> List[bytes]:
-    """Compact, copy meta and then dense[:used] into pinned host memory
-    (one stream sync each), and slice each chunk's bytes from the pinned
-    rows. On a CUDA tensor, mark(stage) is called on the host at the
+                mark=_no_mark, compact=_compact) -> List[bytes]:
+    """Compact with `compact` (_compact: the kernels on a CUDA tensor; or
+    compact_rows_plain), copy meta and then dense[:used] into pinned host
+    memory (one stream sync each), and slice each chunk's bytes from the
+    pinned rows. On a CUDA tensor, mark(stage) is called on the host at the
     stage boundaries: after the compaction and the meta copy are enqueued
     ("compaction", "meta_d2h"), once meta is on the host and the rows'
     pinned buffer is allocated ("d2h_start"), and after the rows' copy is
     enqueued ("d2h"); chip_smoke.py records a CUDA event at each to time
     the stages of this very fetch."""
     N = bodies.shape[0]
-    dense, meta = _compact(bodies, sizes)
+    dense, meta = compact(bodies, sizes)
     if dense.is_cuda:
         stream = torch.cuda.current_stream(dense.device)
         mark("compaction")
@@ -270,13 +272,20 @@ def _fetch_impl(bodies: torch.Tensor, sizes: torch.Tensor,
     return [buf[o * ROWB: o * ROWB + s].tobytes() for o, s in zip(offs, sz)]
 
 
+def _fetch_plain(bodies: torch.Tensor, sizes: torch.Tensor,
+                 mark=_no_mark) -> List[bytes]:
+    """_fetch_impl with the plain compaction on any device (the JAX
+    package's fetch_chunks_xla → _xla_compact)."""
+    return _fetch_impl(bodies, sizes, mark, compact=compact_rows_plain)
+
+
 def _register_tiers():
     from ..utils import dispatch
     from ..utils.config import TIER_KERNEL, TIER_TORCH
     dispatch.register("container", "fetch_chunks", TIER_KERNEL,
                       "fetch_chunks_kernel")(_fetch_impl)
     dispatch.register("container", "fetch_chunks", TIER_TORCH,
-                      "fetch_chunks_torch")(_fetch_impl)
+                      "fetch_chunks_torch")(_fetch_plain)
 
 
 _register_tiers()

@@ -2,9 +2,11 @@
 
 The port binds the same C++ library as the JAX package, restricted to the
 symbols its codecs use: the LZ4 and LZ4HC block codecs, raw snappy, the
-deflate encoder and inflate, the zstd encoder, decoder and frame planner
-(the device decoder's header cracking), and the RAP container
-writer/parser. The
+deflate encoder, inflate and the inflate planner (the device inflate's
+header cracking), the bzip2 codec and its device-BWT stages (prepare,
+emit), the LZMA codec and its candidate-driven encoder, the zstd encoder,
+decoder and frame planner (the device decoder's header cracking), and the
+RAP container writer/parser. The
 library is built with ``make -C csrc`` on first use when it is missing or
 older than its sources.
 """
@@ -50,6 +52,27 @@ _SIGNATURES = [
     ("atpu_inflate", _i64,
      [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _i32]),
     ("atpu_deflate_bound", _i64, [_i64]),
+    ("atpu_inflate_plan", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, _u8p, ctypes.POINTER(_i64)]),
+    ("atpu_bz2_compress", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _i32]),
+    ("atpu_bz2_decompress", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t]),
+    ("atpu_bz2_prepare", _i64,
+     [_u8p, ctypes.c_size_t, _i32, _u8p, ctypes.c_size_t,
+      ctypes.POINTER(_i64), ctypes.POINTER(_i64), _u32p, _i32]),
+    ("atpu_bz2_emit", _i64,
+     [_i32, _i32, _u8p, ctypes.POINTER(_i64), ctypes.POINTER(_i64), _u32p,
+      _u8p, ctypes.c_size_t]),
+    ("atpu_lzma_compress", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _i32]),
+    ("atpu_lzma_decompress", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t]),
+    ("atpu_lzma_unpacked_size", _i64, [_u8p, ctypes.c_size_t]),
+    ("atpu_lzma_compress_cand", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _i32,
+      ctypes.POINTER(_i64), ctypes.POINTER(_i32), ctypes.POINTER(_i32),
+      _i64]),
     ("atpu_rap_frame_len", _i64, [_i32]),
     ("atpu_rap_write", _i64, [_u8p, _i64, _i32, _u32p, _u32p, _u32p]),
     ("atpu_rap_parse", _i64, [_u8p, _i64, _u32p, _u32p, _u32p, _i32]),
@@ -289,6 +312,150 @@ def inflate(data: bytes, expected_size: Optional[int] = None,
         if n == -4:
             raise ValueError("zlib: adler32 mismatch")
         raise ValueError("inflate: corrupt stream")
+
+
+def inflate_plan(chunk: bytes):
+    """Crack the first deflate block's header of a raw chunk (the device
+    inflate's host stage): (bit offset of its symbol section, litlen code
+    lengths u8[288], distance code lengths u8[32]), or None for a stored
+    or corrupt first block."""
+    src = _tobuf(chunk)
+    ll = np.zeros(288, np.uint8)
+    dl = np.zeros(32, np.uint8)
+    boff = _i64()
+    r = get_lib().atpu_inflate_plan(_as_u8p(src), len(chunk), _as_u8p(ll),
+                                    _as_u8p(dl), ctypes.byref(boff))
+    if r <= 0:
+        return None
+    return int(boff.value), ll, dl
+
+
+# --- bzip2 (csrc/bzip2.cpp) ------------------------------------------------
+
+def bz2_compress(data: bytes, level: int = 9) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = len(data) + len(data) // 2 + 600
+    ref, dp = _alloc_out(cap)
+    n = lib.atpu_bz2_compress(_as_u8p(src), len(data), dp, cap, level)
+    if n < 0:
+        raise ValueError("bz2 compress failed")
+    return _finish_out(ref, n)
+
+
+def bz2_decompress(data: bytes, expected_size: Optional[int] = None) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = expected_size if expected_size is not None else max(
+        256, 8 * len(data))
+    while True:
+        ref, dp = _alloc_out(cap)
+        n = lib.atpu_bz2_decompress(_as_u8p(src), len(data), dp,
+                                    max(cap, 1))
+        if n >= 0:
+            return _finish_out(ref, n)
+        if n == -2 and expected_size is None and cap < (1 << 31):
+            cap *= 4
+            continue
+        if n == -4:
+            raise ValueError("bz2: CRC mismatch")
+        raise ValueError("bz2: corrupt stream")
+
+
+def bz2_prepare(data: bytes, level: int):
+    """RLE1, the block split and each block's CRC (the device-BWT tier's
+    host stage): (rle1 buffer, offsets, lens, crcs)."""
+    lib = get_lib()
+    src = _tobuf(data)
+    rle = np.empty(len(data) + len(data) // 2 + 64, dtype=np.uint8)
+    max_blocks = rle.size // (100000 * level) + 2
+    offs = np.empty(max_blocks, dtype=np.int64)
+    lens = np.empty(max_blocks, dtype=np.int64)
+    crcs = np.empty(max_blocks, dtype=np.uint32)
+    nb = lib.atpu_bz2_prepare(
+        _as_u8p(src), len(data), level, _as_u8p(rle), rle.size,
+        offs.ctypes.data_as(ctypes.POINTER(_i64)),
+        lens.ctypes.data_as(ctypes.POINTER(_i64)),
+        crcs.ctypes.data_as(_u32p), max_blocks)
+    if nb < 0:
+        raise ValueError("bz2 prepare failed")
+    return rle, offs[:nb], lens[:nb], crcs[:nb]
+
+
+def bz2_emit(level: int, Ls: bytes, lens, orig_ptrs, crcs) -> bytes:
+    """A .bz2 stream from each block's BWT output (L, primary index) and
+    CRC: MTF, RLE2 and the Huffman stages on the host."""
+    lib = get_lib()
+    lsbuf = _tobuf(Ls)
+    lens64 = np.ascontiguousarray(lens, dtype=np.int64)
+    origs = np.ascontiguousarray(orig_ptrs, dtype=np.int64)
+    crcs32 = np.ascontiguousarray(crcs, dtype=np.uint32)
+    total = int(lens64.sum())
+    dst = np.empty(total + total // 2 + 600, dtype=np.uint8)
+    n = lib.atpu_bz2_emit(
+        level, len(lens64), _as_u8p(lsbuf),
+        lens64.ctypes.data_as(ctypes.POINTER(_i64)),
+        origs.ctypes.data_as(ctypes.POINTER(_i64)),
+        crcs32.ctypes.data_as(_u32p), _as_u8p(dst), dst.size)
+    if n < 0:
+        raise ValueError("bz2 emit failed")
+    return dst[:n].tobytes()
+
+
+# --- LZMA (csrc/lzma.cpp), FORMAT_ALONE --------------------------------------
+
+def lzma_compress(data: bytes, level: int = 6) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = len(data) + len(data) // 2 + 256
+    ref, dp = _alloc_out(cap)
+    n = lib.atpu_lzma_compress(_as_u8p(src), len(data), dp, cap, level)
+    if n < 0:
+        raise ValueError("lzma compress failed")
+    return _finish_out(ref, n)
+
+
+def lzma_decompress(data: bytes,
+                    expected_size: Optional[int] = None) -> bytes:
+    lib = get_lib()
+    src = _tobuf(data)
+    if expected_size is None:
+        declared = lib.atpu_lzma_unpacked_size(_as_u8p(src), len(data))
+        cap = int(declared) if declared >= 0 else max(256, 8 * len(data))
+    else:
+        cap = expected_size
+    while True:
+        ref, dp = _alloc_out(cap)
+        n = lib.atpu_lzma_decompress(_as_u8p(src), len(data), dp,
+                                     max(cap, 1))
+        if n >= 0:
+            return _finish_out(ref, n)
+        if n == -2 and cap < (1 << 31):
+            cap = max(cap * 4, 1024)
+            continue
+        raise ValueError("lzma: corrupt stream")
+
+
+def lzma_compress_cand(data: bytes, level: int, cpos, clen, cdist) -> bytes:
+    """Candidate-driven LZMA encode (the device match-finder assist's host
+    stage): cpos / clen / cdist are the elected sequences, absolute
+    positions in ascending order. Every candidate is revalidated, so a bad
+    one only shortens a match."""
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = len(data) + (len(data) // 3) + 256 + 13
+    dst = np.empty(cap, dtype=np.uint8)
+    cp = np.ascontiguousarray(cpos, dtype=np.int64)
+    cl = np.ascontiguousarray(clen, dtype=np.int32)
+    cd = np.ascontiguousarray(cdist, dtype=np.int32)
+    n = lib.atpu_lzma_compress_cand(
+        _as_u8p(src), len(data), _as_u8p(dst), cap, level,
+        cp.ctypes.data_as(ctypes.POINTER(_i64)),
+        cl.ctypes.data_as(ctypes.POINTER(_i32)),
+        cd.ctypes.data_as(ctypes.POINTER(_i32)), cp.size)
+    if n < 0:
+        raise ValueError("lzma candidate compress failed")
+    return dst[:n].tobytes()
 
 
 # --- RAP container ----------------------------------------------------------

@@ -3,8 +3,14 @@
 Backend tiers (which implementation of a codec runs), lowest first:
 
   0 = HOST    — host C++ path (csrc/libaocl_tpu_host.so)
-  1 = TORCH   — PyTorch tensor pipeline on the handle's device
-  2 = KERNEL  — hand-written CUDA kernels for the hot stages
+  1 = TORCH   — PyTorch tensor pipeline on the handle's device. The
+                serial-scan kernels (csrc/zstd_scan.cu, csrc/inflate_scan.cu)
+                belong to this tier: they replace the JAX package's
+                lax.scans, which are XLA-tier code, and their plain loops
+                cannot serve on the card (seconds per batch).
+  2 = KERNEL  — hand-written CUDA kernels for the hot stages: the
+                compaction (csrc/compact.cu, the JAX package's Pallas
+                kernel); a TORCH cap runs its plain version instead
   3 = MULTI   — several devices (not ported yet)
 
 Env vars, read like the JAX package reads them:

@@ -6,8 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printed on its own lines; any failure raises and exits
 non-zero before the last line:
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build: nvcc for every CUDA source and the host C++ library, started
-     together (ptxas's registers and shared memory of every kernel);
+  2. build: nvcc for every CUDA source (compact.cu, zstd_scan.cu,
+     inflate_scan.cu) and the host C++ library, started together (ptxas's
+     registers and shared memory of every kernel);
   3. every kernel against its plain PyTorch version, output for output:
      compact_rows (layout scan + bulk copy) at the main path's shapes
      (N=256 chunks of OUTCAP=65536, sizes from a real encode), at every
@@ -47,7 +48,15 @@ non-zero before the last line:
   9. zlib: setup("zlib", level=1|2, opt_var=2) likewise, each stream read
      by stdlib zlib.decompress after skip_rap_frame, the host deflate at
      levels 1 and 6 timed on the same corpus, and the launches and device
-     time of the dynamic path's _kraft_lengths;
+     time of the dynamic path's _kraft_lengths; then device inflate
+     (set_config(device_decode=True)) of both streams through the API:
+     exact, audited, the inflate kernel's launches, the chunks on each
+     route (card, planner reject, multi-block), lanes per launch, MB/s
+     beside the host decoder's, peak memory and per-stage device times;
+     then the kernel inflate_symbol_scan (csrc/inflate_scan.cu) against
+     its plain version on the first 8 lanes of the batch's real inputs,
+     its graph-replay time on the whole batch, its HBM bound and its
+     longest lane's serial steps;
  10. zstd: setup("zstd", level=1, opt_var=2) on the same corpus (3
      calls): audit, the compaction's and the FSE scan kernel's launches,
      ratio and MB/s beside the host tier's at level 1, peak memory, the
@@ -59,10 +68,20 @@ non-zero before the last line:
      batch's real inputs, its graph-replay time on the whole batch, its HBM
      bound and its longest lane's serial steps (phase 3 holds the
      compaction at the zstd shapes 1,024 x 23,040 and 256 x 82,432);
- 11. one JSON line listing every ported kernel: compact_rows with its
-     launches summed over the paths of phases 4 and 6-10, the scan kernels
-     with theirs in phase 10;
- 12. last line: {"ok": true, "device": {...}}.
+ 11. bzip2 and lzma on the same corpus: setup("bzip2", level=9) (host)
+     beside setup("bzip2", level=9, opt_var=2) (the device block sort),
+     setup("lzma", level=6) (host) beside setup("lzma", level=6,
+     opt_var=2) (the device match-finder assist): audit, ratio, MB/s (one
+     call each: the host lzma and the device tiers take seconds), round
+     trips through the API and stdlib bz2 / lzma, peak memory, the
+     16-block stream's sha256 against the JAX package's, and stage times
+     (the BWT on the card against bz2_prepare / bz2_emit on the host;
+     _find_matches and _grid_parse at G = 1 against lzma_compress_cand);
+ 12. one JSON line listing every ported kernel: compact_rows with its
+     launches summed over the paths of phases 4 and 6-10, the zstd scan
+     kernels with theirs in phase 10, inflate_symbol_scan with its own in
+     phase 9;
+ 13. last line: {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -89,6 +108,8 @@ PINNED_CALLS = {
     "zlib level 1": ("zlib", dict(level=1, opt_var=2)),
     "zlib level 2": ("zlib", dict(level=2, opt_var=2)),
     "zstd level 1": ("zstd", dict(level=1, opt_var=2)),
+    "bzip2 level 9": ("bzip2", dict(level=9, opt_var=2)),
+    "lzma level 6": ("lzma", dict(level=6, opt_var=2)),
 }
 PINNED_SHA256 = {
     "snappy":
@@ -99,6 +120,12 @@ PINNED_SHA256 = {
         "42f3edfe137731687ee84e4b661ad771d74d8699b34f26f5ac0460f6826d9a38",
     "zstd level 1":
         "f3389678928ff557b7981e31ab70e22573106ca4b71e3fa0a811ce6c851bcb99",
+    # the first 16 blocks (1 MiB) as for the others: one 900,000-byte
+    # BWT block and a short one; 16 lzma assist blocks
+    "bzip2 level 9":
+        "7e275b024219289ffa89e6ff12d11c9ae7b2b3c5869f826d2d0aee0d17869afd",
+    "lzma level 6":
+        "7714dcaebebd8a3b1452d36f4e207835735cf71925f8bcdd5b343cc2249e5cde",
 }
 
 
@@ -175,7 +202,7 @@ def phase_card():
 
 
 def phase_build():
-    from aocl_compression_tpu_torch.ops import compact, zstd_scan
+    from aocl_compression_tpu_torch.ops import compact, inflate_scan, zstd_scan
     from aocl_compression_tpu_torch.runtime import native
 
     def timed(fn):
@@ -183,14 +210,17 @@ def phase_build():
         fn()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
         nvcc = ex.submit(timed, compact.build)
         scan = ex.submit(timed, zstd_scan.build)
+        inf = ex.submit(timed, inflate_scan.build)
         host = ex.submit(timed, native.get_lib)
         print(f"[build] nvcc csrc/compact.cu (sm_90a): {nvcc.result():.2f} s; "
               f"nvcc csrc/zstd_scan.cu (sm_90a): {scan.result():.2f} s; "
+              f"nvcc csrc/inflate_scan.cu (sm_90a): {inf.result():.2f} s; "
               f"host library (make -C csrc): {host.result():.2f} s")
-    for log in (compact.build_log, zstd_scan.build_log):
+    for log in (compact.build_log, zstd_scan.build_log,
+                inflate_scan.build_log):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
@@ -478,20 +508,22 @@ def fmt_stages(stage):
 
 def run_path(label, fn, hits_want, calls=3, per_call=None):
     """fn() `calls` times with the audit on and every kernel count
-    (compact.launches, zstd_scan.launches) set to 0 just before: (last
-    result, best s, compact_rows launches, peak device GB); the scan
-    kernels' counts stay in zstd_scan.launches for the caller to read.
-    Fails unless every audit name in hits_want was hit `calls` times (times
-    per_call[name] where given)."""
-    from aocl_compression_tpu_torch.ops import compact, zstd_scan
+    (compact.launches, zstd_scan.launches, inflate_scan.launches) set to 0
+    just before: (last result, best s, compact_rows launches, peak device
+    GB); the scan kernels' counts stay in zstd_scan.launches and
+    inflate_scan.launches for the caller to read. Fails unless every audit
+    name in hits_want was hit `calls` times (times per_call[name] where
+    given)."""
+    from aocl_compression_tpu_torch.ops import compact, inflate_scan, zstd_scan
     from aocl_compression_tpu_torch.utils import dispatch
     fn()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.enable_audit(True)
     compact.launches = 0
-    for k in zstd_scan.launches:
-        zstd_scan.launches[k] = 0
+    for counts in (zstd_scan.launches, inflate_scan.launches):
+        for k in counts:
+            counts[k] = 0
     try:
         res, t = best_s(fn, calls)
         launches = compact.launches
@@ -775,6 +807,7 @@ def phase_zlib(data: bytes, blocks, dev):
 
     mb = len(data) / 1e6
     total = 0
+    streams = {}
     stages = {1: ("start", "h2d", "find_matches", "grid_parse", "emit",
                   "compaction", "meta_d2h"),
               2: ("start", "h2d", "find_matches", "grid_parse", "histograms",
@@ -805,6 +838,7 @@ def phase_zlib(data: bytes, blocks, dev):
               f"round trip exact, stdlib zlib reads it after skip_rap_frame; "
               f"peak device memory {peak_gb:.2f} GB")
         check_pinned(label, act.compress(h, data[:PINNED_BLOCKS * B]))
+        streams[level] = c
         stage, stream = staged(
             lambda rec: _device_chunks(blocks, level, dev, mark=rec),
             stages[level],
@@ -851,7 +885,175 @@ def phase_zlib(data: bytes, blocks, dev):
           f"{sum(e.count for e in dev_ops)} device launches, "
           f"{sum(e.self_device_time_total for e in dev_ops) / 1e3:.3f} ms "
           f"device time (profiler)")
-    return total
+    dlaunches, inflate = phase_inflate(data, streams, dev)
+    return total, dlaunches, inflate
+
+
+INFLATE_SLICE = 8   # lanes the plain scan runs on (it launches per step)
+
+
+def phase_inflate(data: bytes, streams, dev):
+    """Device inflate (set_config(device_decode=True)) of the zlib level 1
+    and 2 streams through the API, beside the host decoder; the chunks on
+    each route and the stages of each decode; then inflate_symbol_scan
+    against its plain version on the batch's real inputs. Returns
+    (compact_rows launches, the kernel's stats)."""
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch.codecs.zlib_bzip2_lzma import (
+        _inflate_host)
+    from aocl_compression_tpu_torch.ops import inflate_device as idev
+    from aocl_compression_tpu_torch.ops import inflate_scan
+    from aocl_compression_tpu_torch.runtime import native
+
+    mb = len(data) / 1e6
+    total = scans = 0
+    for level, c in streams.items():
+        h = act.setup("zlib", level=level, opt_var=2)
+        act.set_config(device_decode=True)
+        try:
+            d, d_s, launches, peak_gb = run_path(
+                f"decode zlib{level}", lambda: act.decompress(h, c),
+                ("zlib_decompress_blocks_torch", "fetch_chunks_kernel"))
+        finally:
+            act.set_config(device_decode=False)
+        n_scan = inflate_scan.launches["inflate_symbol_scan"]
+        if d != data:
+            raise AssertionError(f"zlib{level}: device inflate did not "
+                                 f"return the input")
+        if launches != 2 * 3 or n_scan != 3:
+            raise AssertionError(f"decode zlib{level}: the compaction or "
+                                 f"the inflate kernel did not launch once "
+                                 f"per call")
+        total += launches
+        scans += n_scan
+        _, h_s = best_s(lambda: act.decompress(h, c))
+        offs, lens_, dlens = native.rap_parse(c)
+        chunks = [c[int(o):int(o) + int(n)] for o, n in zip(offs, lens_)]
+        dl = [int(x) for x in dlens]
+        rejects = sum(native.inflate_plan(x) is None for x in chunks)
+        hosted = []
+
+        def host_count(chunk, dlen):
+            hosted.append(dlen)
+            return _inflate_host(chunk, dlen)
+
+        stage, passes, got = seq_stages(lambda rec: idev.decode_chunks(
+            chunks, dl, device=dev, host_one=host_count, mark=rec))
+        if b"".join(got) != data:
+            raise AssertionError(f"decode zlib{level}: staged decode "
+                                 f"differs")
+        on_host = len(hosted) // 3
+        print(f"[decode zlib{level}] {len(c)} B stream: device inflate "
+              f"{mb / d_s:.2f} MB/s (best of 3, {d_s * 1e3:.2f} ms), host "
+              f"decoder {mb / h_s:.2f} MB/s (best of 3); exact; chunks: "
+              f"{len(chunks) - on_host} on the card, {rejects} planner "
+              f"rejects and {on_host - rejects} multi-block or short "
+              f"decodes on the host; {len(chunks) - rejects} lanes per "
+              f"launch (one batch); peak device memory {peak_gb:.2f} GB; "
+              f"kernel launches in 3 calls: compact_rows {launches}, "
+              f"inflate_symbol_scan {n_scan}")
+        print(f"[decode zlib{level}] stage times, ms (min of 3; device "
+              f"events; plan = the host's first-block plans, h2d_batch = "
+              f"the batch build and upload, host = the host route after "
+              f"the fetch; {passes} resolve passes): " + fmt_stages(stage))
+
+    # the kernel on the level-1 batch's real inputs
+    args = capture(idev, "_scan_compact", lambda: idev.decode_chunks(
+        chunks, dl, device=dev, host_one=_inflate_host))[0]
+    cut = [t[:INFLATE_SLICE] for t in args[:10]] + list(args[10:])
+    B_, MAXSEQ = args[10:]
+
+    def plain(cb, bo, *rest):
+        p, (b_, m_) = rest[:8], rest[8:]
+        return idev._compact_plain(*idev._symbol_scan_plain(
+            idev._bytes_to_words(cb), bo, *p, b_ + idev._SCAN_PAD), b_, m_)
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = plain(*cut)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    got = inflate_scan.inflate_symbol_scan(*cut)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"inflate_symbol_scan differs from its plain "
+                             f"version: max_abs_err {err}")
+    ms = graph_ms(lambda: inflate_scan.inflate_symbol_scan(*args),
+                  reps=3, replays=5)
+    full = inflate_scan.inflate_symbol_scan(*args)
+    n_lanes, C = args[0].shape
+    ok = [x for x in chunks if native.inflate_plan(x) is not None]
+    nbytes = (sum(len(x) for x in ok) + n_lanes * 4 * (1 + 6 * 16 + 288 + 32)
+              + n_lanes * B_ + 3 * 4 * n_lanes * MAXSEQ + 8 * n_lanes)
+    steps = int(torch.clamp(full[4] + full[5] + 1, max=B_ + 4).max())
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[decode kernel] inflate_symbol_scan vs plain on the zlib1 "
+          f"batch's first {INFLATE_SLICE} lanes: equal on every output "
+          f"(litbuf, ll, ml, off, nbseq, litregen); kernel {ms:.4f} ms on "
+          f"the whole batch of {n_lanes} lanes x C={C}, B={B_} (CUDA-graph "
+          f"replay), plain version {plain_ms:.2f} ms on the "
+          f"{INFLATE_SLICE}-lane slice (one call, device events), bound "
+          f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s), longest lane "
+          f"{steps} serial steps ({ms / steps * 1e3:.3f} us per step)")
+    return total, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, steps=steps, launches=scans)
+
+
+def phase_bzip2_lzma(data: bytes, dev):
+    """setup("bzip2", level=9) and setup("lzma", level=6), host beside
+    device (opt_var=2: the device block sort, the match-finder assist),
+    one call each."""
+    import bz2
+    import lzma
+
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch.codecs.zlib_bzip2_lzma import (
+        _bzip2_compress_torch, _lzma_compress_torch)
+
+    mb = len(data) / 1e6
+    cases = (("bzip2", 9, bz2.decompress,
+              lambda rec: _bzip2_compress_torch(data, 9, dev, mark=rec)),
+             ("lzma", 6,
+              lambda c: lzma.decompress(c, format=lzma.FORMAT_ALONE),
+              lambda rec: _lzma_compress_torch(data, 6, dev, mark=rec)))
+    for method, level, stdlib, staged_run in cases:
+        hh = act.setup(method, level=level)
+        ch, ch_s = best_s(lambda: act.compress(hh, data), 1)
+        if stdlib(ch) != data or act.decompress(hh, ch) != data:
+            raise AssertionError(f"{method}: host tier round trip failed")
+        h = act.setup(method, level=level, opt_var=2)
+        c, c_s, _, peak_gb = run_path(
+            method, lambda: act.compress(h, data),
+            (f"{method}_compress_torch",), calls=1)
+        if act.decompress(h, c) != data or stdlib(c) != data:
+            raise AssertionError(f"{method}: the device tier's stream does "
+                                 f"not round-trip through the API and the "
+                                 f"stdlib")
+        print(f"[{method}] setup('{method}', level={level}) (host): "
+              f"{len(ch)} B, ratio {len(data) / len(ch):.4f}, "
+              f"{mb / ch_s:.2f} MB/s; setup('{method}', level={level}, "
+              f"opt_var=2) on {h.device}: {len(c)} B, ratio "
+              f"{len(data) / len(c):.4f}, {mb / c_s:.2f} MB/s (one call "
+              f"each, after a warm-up call of the device tier); both read "
+              f"back by the API and the stdlib; peak device memory "
+              f"{peak_gb:.2f} GB")
+        check_pinned(f"{method} level {level}",
+                     act.compress(h, data[:PINNED_BLOCKS * B]))
+        stage, _, out = seq_stages(staged_run, calls=1)
+        if out != c:
+            raise AssertionError(f"{method}: staged device tier stream "
+                                 f"differs from the API's")
+        print(f"[{method}] stage times, ms (one call; device events, the "
+              f"host stages on the host clock"
+              + ("; bwt = every block's device sort and its L fetch, "
+                 "prepare / emit = the host's RLE1 + CRC and MTF + Huffman"
+                 if method == "bzip2" else
+                 "; range_code = the host's lzma_compress_cand") + "): "
+              + fmt_stages(stage))
 
 
 def seq_stages(run, calls=3):
@@ -1163,9 +1365,11 @@ def main():
     paths["lz4/lz4hc device decode"] = phase_decode(
         data, {"lz4": c_lz4, "lz4hc": c_hc}, dev)
     paths["snappy encode + device decode"] = phase_snappy(data, blocks, dev)
-    paths["zlib levels 1 and 2"] = phase_zlib(data, blocks, dev)
+    (paths["zlib levels 1 and 2"], paths["zlib device inflate"],
+     inflate) = phase_zlib(data, blocks, dev)
     paths["zstd level 1 encode + device decode"], scans = phase_zstd(
         data, blocks, dev)
+    phase_bzip2_lzma(data, dev)
     print("[paths] compact_rows launches: " + ", ".join(
         f"{k} {v}" for k, v in paths.items()))
 
@@ -1188,6 +1392,13 @@ def main():
             max_abs_err=st["max_abs_err"], ms=st["ms"],
             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by="bytes", library_ms=None))
+    kernels.append(dict(
+        name="inflate_symbol_scan", route="cuda",
+        source="aocl_compression_tpu_torch/csrc/inflate_scan.cu",
+        replaces="aocl_compression_tpu/ops/inflate_device.py:121",
+        launches=inflate["launches"], max_abs_err=inflate["max_abs_err"],
+        ms=inflate["ms"], plain_ms=inflate["plain_ms"],
+        bound_ms=inflate["bound_ms"], bound_by="bytes", library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

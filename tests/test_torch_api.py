@@ -118,6 +118,25 @@ def test_audit_shows_port_tiers_only(device_tier):
         jdispatch.enable_audit(False)
 
 
+def test_lz4_num_shards_requests_the_device_tier(device_tier):
+    """num_shards > 1 requests the device tier at opt_var 0 (accel 1: the
+    exact parse), as in the JAX package; the TORCH tier serves it until
+    the multi-device tier is ported."""
+    data = _data("mixed")
+    ref = actpu.compress(actpu.setup("lz4", num_shards=2, opt_var=0,
+                                     block_size=4096), data)
+    h = act.setup("lz4", num_shards=2, opt_var=0, block_size=4096,
+                  device="cpu")
+    tdispatch.enable_audit(True)
+    try:
+        c = act.compress(h, data)
+        assert tdispatch.audit_hits().get("lz4_compress_blocks_torch") == 1
+    finally:
+        tdispatch.enable_audit(False)
+    assert c == ref
+    assert act.decompress(h, c) == data
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         assert act.setup("lz4").device.type == "cuda"
@@ -127,9 +146,16 @@ def test_default_device_is_cuda():
 
 
 def test_unported_method_unsupported():
+    # all seven methods are ported; a method outside the enum is
+    # unsupported, as in the JAX package
+    assert [c.name for c in act.list_codecs()] == [
+        c.name for c in actpu.list_codecs()]
     with pytest.raises(act.CompressionError) as e:
-        act.setup("bzip2", device="cpu")
+        act.setup("brotli", device="cpu")
     assert e.value.code == act.ErrorCode.UNSUPPORTED_METHOD
+    with pytest.raises(actpu.CompressionError) as je:
+        actpu.setup("brotli")
+    assert je.value.code == actpu.ErrorCode.UNSUPPORTED_METHOD
     assert act.version() != actpu.version()
     assert act.compress_bound("lz4", 1 << 20) == actpu.compress_bound(
         "lz4", 1 << 20)
@@ -336,8 +362,7 @@ def test_calibrated_dispatch_policy(monkeypatch):
 
 def test_snappy_device_decode_round_trip(device_tier, monkeypatch):
     """AOCL_DEVICE_DECODE=1 routes snappy RAP decode to the port's device
-    decoder (audited); zlib decode stays on the host tier until device
-    inflate is ported."""
+    decoder and zlib RAP decode to the device inflate (audited)."""
     data = _data("mixed")
     for method, kw in (NEW_PATHS["snappy"], NEW_PATHS["zlib2"]):
         h = act.setup(method, block_size=B, device="cpu", **kw)
@@ -351,7 +376,7 @@ def test_snappy_device_decode_round_trip(device_tier, monkeypatch):
             tdispatch.enable_audit(False)
             monkeypatch.delenv("AOCL_DEVICE_DECODE")
         want = ("snappy_decompress_blocks_torch" if method == "snappy"
-                else "zlib_decompress_blocks_host")
+                else "zlib_decompress_blocks_torch")
         assert hits.get(want) == 1, hits
 
 

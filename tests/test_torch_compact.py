@@ -283,3 +283,25 @@ def test_oversize_body_clamped_cuda(cuda_device):
                                    torch.from_numpy(sizes).to(cuda_device))
     assert chunks == [bodies[0].tobytes(), bodies[1, :100].tobytes(),
                       bodies[2].tobytes()]
+
+
+@pytest.mark.cuda
+def test_torch_cap_runs_no_compaction_kernel(cuda_device, monkeypatch):
+    """Under AOCL_ENABLE_INSTRUCTIONS=TORCH the fetch runs the plain
+    compaction on the card (the JAX package's fetch_chunks_xla): the
+    kernels' count stays 0, and the chunks and an lz4 stream through the
+    API are unchanged."""
+    import aocl_compression_tpu_torch as act
+    bodies, sizes = _mk_edges(300, 1024, seed=12)
+    b = torch.from_numpy(bodies).to(cuda_device)
+    s = torch.from_numpy(sizes).to(cuda_device)
+    data = (b"the block hash match stream " * 3000)[:3 * 65536 - 77]
+    monkeypatch.delenv("AOCL_ENABLE_INSTRUCTIONS", raising=False)
+    h = act.setup("lz4", opt_var=2, block_size=65536, device=cuda_device)
+    want, want_c = tcompact.fetch_chunks(b, s), act.compress(h, data)
+    monkeypatch.setenv("AOCL_ENABLE_INSTRUCTIONS", "TORCH")
+    tcompact.launches = 0
+    assert tcompact.fetch_chunks(b, s) == want
+    assert act.compress(h, data) == want_c
+    torch.cuda.synchronize()
+    assert tcompact.launches == 0

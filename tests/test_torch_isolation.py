@@ -23,8 +23,11 @@ class Blocker:
 
 sys.meta_path.insert(0, Blocker())
 import aocl_compression_tpu_torch as act
-from aocl_compression_tpu_torch.ops import (compact, deflate_device,  # noqa
-                                            lz4_device, snappy_device,
+from aocl_compression_tpu_torch.ops import (bwt_device,  # noqa
+                                            compact, deflate_device,
+                                            inflate_device, inflate_scan,
+                                            lz4_device, lzma_assist,
+                                            snappy_device,
                                             zstd_decode_device, zstd_device,
                                             zstd_scan)
 from aocl_compression_tpu_torch.codecs import (snappy,  # noqa
@@ -45,6 +48,15 @@ for method, kw in (("lz4", {}), ("snappy", {}), ("zlib", dict(level=1)),
     if method == "zstd":
         from aocl_compression_tpu_torch.runtime import native
         assert native.zstd_decompress(c) == data
+import bz2
+import lzma
+data = (data * 2)[:5000]   # over the bzip2 / lzma device threshold
+for method in ("bzip2", "lzma"):
+    h = act.setup(method, opt_var=2, device="cpu")
+    c = act.compress(h, data)
+    assert act.decompress(h, c) == data
+    assert (bz2.decompress(c) if method == "bzip2"
+            else lzma.decompress(c, format=lzma.FORMAT_ALONE)) == data
 assert not any(m == "jax" or m.startswith("aocl_compression_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
