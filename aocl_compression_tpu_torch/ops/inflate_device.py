@@ -116,6 +116,59 @@ def _huff_step(peek, fc, lim, rkb, perm):
     return sym.to(torch.int64), ln
 
 
+# Root-table widths of the kernel (csrc/inflate_scan.cu kRootL, kRootD)
+ROOT_BITS_L = 11
+ROOT_BITS_D = 9
+
+
+def _walk(peek, fc, lim, rkb, perm, lo: int, hi: int):
+    """_huff_step's length walk restricted to lengths lo..hi, on 15-bit
+    peeks (N, K) with each lane's parameters (N, 16) and perm (N, cap):
+    (sym, nbits), each (N, K) int64, nbits = 0 where no length in lo..hi
+    holds the peek's prefix (sym is then perm[lane, 0])."""
+    N, K = peek.shape
+    if lo > hi:
+        z = torch.zeros((N, K), dtype=torch.int64, device=peek.device)
+        return z, z
+    ls = torch.arange(lo, hi + 1, device=peek.device)
+    code = _bitrev15(peek)[:, :, None] >> (15 - ls)
+    f = fc[:, None, lo:hi + 1].to(torch.int64)
+    ok = (code >= f) & (code < lim[:, None, lo:hi + 1])
+    li = torch.argmax(ok.to(_I32), dim=2, keepdim=True)
+    nbits = torch.where(ok.any(dim=2), lo + li[..., 0], 0)
+    rank = torch.gather(rkb[:, None, lo:hi + 1] + code - f, 2, li)[..., 0]
+    rank = torch.where(nbits > 0, rank, 0)
+    sym = torch.gather(perm.to(torch.int64), 1,
+                       torch.clamp(rank, 0, perm.shape[1] - 1))
+    return sym, nbits
+
+
+def root_tables(fc, lim, rkb, perm, R: int):
+    """The kernel's root decode table of R bits for each lane, in plain
+    PyTorch (only the tests use it): (sym, nbits), each (N, 2^R) int64.
+    Entry i is _huff_step's walk over lengths 1..R on the peek i; nbits = 0
+    marks a "long" entry, where no length <= R holds the prefix. For l <= R
+    the l-bit prefix of any peek lies in its low R bits, so the entry is
+    the walk's answer for every peek with those low bits, whatever the
+    parameters."""
+    peeks = torch.arange(1 << R, device=fc.device).expand(fc.shape[0], -1)
+    return _walk(peeks, fc, lim, rkb, perm, 1, R)
+
+
+def root_decode(peek, fc, lim, rkb, perm, R: int, tables):
+    """Decode 15-bit peeks (N, K) as the kernel does: the root entry of each
+    peek's low R bits, and where it is long the walk over lengths R+1..15 on
+    the whole peek. Returns (sym, nbits) as _huff_step does (nbits = 0: a
+    bad code, whose sym the kernel never uses)."""
+    t_sym, t_nb = tables
+    low = peek & ((1 << R) - 1)
+    sym, nbits = torch.gather(t_sym, 1, low), torch.gather(t_nb, 1, low)
+    l_sym, l_nb = _walk(peek, fc, lim, rkb, perm, R + 1, 15)
+    is_long = nbits == 0
+    return (torch.where(is_long, l_sym, sym),
+            torch.where(is_long, l_nb, nbits))
+
+
 def _symbol_scan_plain(words, bitoff, fcL, limL, rkbL, permL, fcD, limD,
                        rkbD, permD, MAXS: int):
     """The interleaved literal/length/distance scan of every lane, one step

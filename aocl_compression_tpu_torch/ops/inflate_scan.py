@@ -1,13 +1,16 @@
 """Wrapper of the device inflate's symbol-scan kernel
 (csrc/inflate_scan.cu).
 
-inflate_symbol_scan is a hand kernel for sm_90a, one thread per chunk lane
-with the lane's canonical-code parameters in shared memory, built with
-nvcc into _build/ at first use and bound with ctypes, as ops/zstd_scan.py
-builds zstd_scan.cu. It decodes each lane's literal/length/distance
-symbols up to its end-of-block or first bad code and writes the
-compaction's outputs directly (the literal buffer and the sequence list),
-so the (kind, val, dist) slots never reach device memory.
+inflate_symbol_scan is a hand kernel for sm_90a, one CUDA block per chunk
+lane, built with nvcc into _build/ at first use and bound with ctypes, as
+ops/zstd_scan.py builds zstd_scan.cu. Its threads fill root decode tables
+in shared memory from the lane's canonical-code parameters, then one
+thread decodes the lane's literal/length/distance symbols up to its
+end-of-block or first bad code, one table lookup per symbol over a bit
+buffer in registers fed through a cp.async ring in shared memory, and
+writes the compaction's outputs directly (the literal buffer and the
+sequence list), so the (kind, val, dist) slots never reach device memory.
+ops/inflate_device.root_tables is the tables' plain version.
 
 The wrapper takes CUDA tensors only, allocates its outputs with
 torch.empty, launches on the current stream and raises when the launch

@@ -1,8 +1,10 @@
 """Wrappers of the zstd tiers' serial-scan kernels (csrc/zstd_scan.cu).
 
-Three hand kernels for sm_90a, one thread per lane with the lane's tables
-in shared memory, built with nvcc into _build/ at first use and bound with
-ctypes, as ops/compact.py builds compact.cu:
+Three hand kernels for sm_90a, one CUDA block per lane with the lane's
+tables in shared memory (one thread decodes; fse_sequence_scan reads
+through a register bit buffer fed by a cp.async ring), built with nvcc
+into _build/ at first use and bound with ctypes, as ops/compact.py builds
+compact.cu:
 
   fse_encode_scan    — the encoder's 3-state reverse FSE scan
                        (ops/zstd_device._fse_scan);

@@ -54,9 +54,11 @@ non-zero before the last line:
      route (card, planner reject, multi-block), lanes per launch, MB/s
      beside the host decoder's, peak memory and per-stage device times;
      then the kernel inflate_symbol_scan (csrc/inflate_scan.cu) against
-     its plain version on the first 8 lanes of the batch's real inputs,
-     its graph-replay time on the whole batch, its HBM bound and its
-     longest lane's serial steps;
+     its plain version on the first 8 lanes of the batch's real inputs
+     and on a seeded adversarial batch of 8 lanes, its graph-replay time
+     on the whole batch, its HBM bound, its longest lane's serial steps,
+     µs and SM cycles per step (the clock read by nvidia-smi while it
+     runs) and the serial floor (FLOOR_CYCLES_PER_STEP a step);
  10. zstd: setup("zstd", level=1, opt_var=2) on the same corpus (3
      calls): audit, the compaction's and the FSE scan kernel's launches,
      ratio and MB/s beside the host tier's at level 1, peak memory, the
@@ -66,8 +68,10 @@ non-zero before the last line:
      route) and its stage times; then each of the three scan kernels of
      csrc/zstd_scan.cu against its plain loop on the first 16 blocks of the
      batch's real inputs, its graph-replay time on the whole batch, its HBM
-     bound and its longest lane's serial steps (phase 3 holds the
-     compaction at the zstd shapes 1,024 x 23,040 and 256 x 82,432);
+     bound, its longest lane's serial steps, µs and SM cycles per step
+     and the serial floor; fse_sequence_scan also on a seeded adversarial
+     batch made from those 16 blocks (phase 3 holds the compaction at the
+     zstd shapes 1,024 x 23,040 and 256 x 82,432);
  11. bzip2 and lzma on the same corpus: setup("bzip2", level=9) (host)
      beside setup("bzip2", level=9, opt_var=2) (the device block sort),
      setup("lzma", level=6) (host) beside setup("lzma", level=6,
@@ -237,6 +241,49 @@ def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
         for _ in range(reps):
             fn()
     return cuda_ms(g.replay, replays) / reps
+
+
+# Model of a serial scan's floor on this card: one dependent shared-memory
+# load per step (about 30 SM cycles of latency on Hopper), nothing else.
+FLOOR_CYCLES_PER_STEP = 30
+
+
+def sm_clock_mhz(fn) -> float:
+    """The SM clock (MHz) nvidia-smi reads while fn() runs back to back."""
+    p = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         stdout=subprocess.PIPE, text=True)
+    while p.poll() is None:
+        fn()
+        torch.cuda.synchronize()
+    return float(p.communicate()[0].split()[0])
+
+
+def per_step(tag, name, fn, ms, steps):
+    """µs and SM cycles per serial step of the longest lane, beside the
+    serial floor (FLOOR_CYCLES_PER_STEP per step at the clock read while
+    fn() runs); returns dict(us_per_step, cycles_per_step, floor_ms,
+    mhz)."""
+    mhz = sm_clock_mhz(fn)
+    us = ms / steps * 1e3
+    floor_ms = steps * FLOOR_CYCLES_PER_STEP / mhz / 1e3
+    print(f"[{tag}] {name}: {us:.4f} us per step, {us * mhz:.1f} SM "
+          f"cycles per step at {mhz:.0f} MHz (nvidia-smi clocks.sm while "
+          f"it runs); "
+          f"serial floor {floor_ms:.4f} ms ({steps} steps x "
+          f"{FLOOR_CYCLES_PER_STEP} cycles)")
+    return dict(us_per_step=us, cycles_per_step=us * mhz, floor_ms=floor_ms,
+                mhz=mhz)
+
+
+def check_equal(label, got, want):
+    """Every output of a kernel equal to its plain version's; returns the
+    max abs error (0)."""
+    err = max_err(got, want)
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{label} differs from its plain version: "
+                             f"max_abs_err {err}")
+    return err
 
 
 def check_compact(compact, label, bodies, sizes):
@@ -978,10 +1025,14 @@ def phase_inflate(data: bytes, streams, dev):
     plain_ms = t0.elapsed_time(t1)
     got = inflate_scan.inflate_symbol_scan(*cut)
     torch.cuda.synchronize()
-    err = max_err(got, want)
-    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"inflate_symbol_scan differs from its plain "
-                             f"version: max_abs_err {err}")
+    err = check_equal("inflate_symbol_scan", got, want)
+    adv = inflate_adversarial(idev)
+    got = inflate_scan.inflate_symbol_scan(*(
+        a.to(dev) if torch.is_tensor(a) else a for a in adv))
+    torch.cuda.synchronize()
+    err = max(err, check_equal("inflate_symbol_scan (adversarial batch)",
+                               [g.cpu() for g in got],
+                               idev._scan_compact(*adv)))
     ms = graph_ms(lambda: inflate_scan.inflate_symbol_scan(*args),
                   reps=3, replays=5)
     full = inflate_scan.inflate_symbol_scan(*args)
@@ -992,15 +1043,71 @@ def phase_inflate(data: bytes, streams, dev):
     steps = int(torch.clamp(full[4] + full[5] + 1, max=B_ + 4).max())
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"[decode kernel] inflate_symbol_scan vs plain on the zlib1 "
-          f"batch's first {INFLATE_SLICE} lanes: equal on every output "
-          f"(litbuf, ll, ml, off, nbseq, litregen); kernel {ms:.4f} ms on "
-          f"the whole batch of {n_lanes} lanes x C={C}, B={B_} (CUDA-graph "
-          f"replay), plain version {plain_ms:.2f} ms on the "
-          f"{INFLATE_SLICE}-lane slice (one call, device events), bound "
-          f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s), longest lane "
-          f"{steps} serial steps ({ms / steps * 1e3:.3f} us per step)")
+          f"batch's first {INFLATE_SLICE} lanes and on an adversarial batch "
+          f"of 8 lanes (seeded: random streams, random / incomplete / "
+          f"over-subscribed codes up to 15 bits, a position past the row, "
+          f"the b + 4 step cap, more matches than MAXSEQ, no distance "
+          f"codes): equal on every output (litbuf, ll, ml, off, nbseq, "
+          f"litregen); kernel {ms:.4f} ms on the whole batch of {n_lanes} "
+          f"lanes x C={C}, B={B_} (CUDA-graph replay), plain version "
+          f"{plain_ms:.2f} ms on the {INFLATE_SLICE}-lane slice (one call, "
+          f"device events), bound {bound_ms:.4f} ms ({nbytes} B at 3.35 "
+          f"TB/s), longest lane {steps} serial steps")
+    st = per_step("decode kernel", "inflate_symbol_scan",
+                  lambda: inflate_scan.inflate_symbol_scan(*args), ms, steps)
     return total, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, steps=steps, launches=scans)
+                       bound_ms=bound_ms, steps=steps, launches=scans, **st)
+
+
+def inflate_adversarial(idev, seed: int = 3):
+    """A small corrupt and edge batch for inflate_symbol_scan, from a seed
+    with numpy as in tests/test_torch_inflate.py's card tests: 8 lanes of
+    C = 2048 random bytes, B = 1024, MAXSEQ = 40, as CPU tensors and
+    widths. Lane 0: static codes; 1: random code ranges per length and a
+    rank past int32; 2 / 3: incomplete / over-subscribed code lengths (up
+    to 15 bits: the long path); 4: a position past the row's end (clamped
+    reads); 5: 1-bit literal codes (the b + 4 step cap); 6: 1-bit matches
+    (more than MAXSEQ); 7: no distance codes."""
+    rng = np.random.default_rng(seed)
+    N, C = 8, 2048
+    cb = rng.integers(0, 256, (N, C), dtype=np.uint8)
+    bo = rng.integers(0, 64, N).astype(np.int32)
+    bo[4] = 8 * C + 37
+
+    def some(lo, hi, nsym):
+        lens = np.zeros(nsym, np.int64)
+        k = rng.integers(2, nsym)
+        lens[rng.choice(nsym, k, replace=False)] = rng.integers(lo, hi, k)
+        return lens
+
+    lens_l = [np.array([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8)] * N
+    lens_d = [np.full(32, 5)] * N
+    lens_l[2], lens_d[2] = some(3, 16, 288), some(3, 16, 32)
+    lens_l[3], lens_d[3] = some(1, 6, 288), some(1, 6, 32)
+    lens_l[5] = np.zeros(288, np.int64)
+    lens_l[5][[65, 200]] = 1
+    lens_l[6] = np.zeros(288, np.int64)
+    lens_l[6][[65, 257, 270]] = [2, 1, 2]
+    lens_d[6] = np.zeros(32, np.int64)
+    lens_d[6][[0, 29]] = 1
+    lens_d[7] = np.zeros(32, np.int64)
+    params = ([np.stack(c) for c in zip(*[idev._canon_params(x, 288)
+                                          for x in lens_l])]
+              + [np.stack(c) for c in zip(*[idev._canon_params(x, 32)
+                                            for x in lens_d])])
+    ls = np.arange(16)
+    for f in (0, 4):  # lane 1: not canonical at all
+        nsym = params[f + 3].shape[1]
+        fc = rng.integers(-2, 1 << ls)
+        lim = fc + rng.integers(-1, (1 << ls) // 2 + 2)
+        lim[:rng.integers(1, 9)] = 0
+        params[f][1], params[f + 1][1] = fc, lim
+        params[f + 2][1] = rng.integers(-40, nsym + 40, 16)
+        params[f + 3][1] = rng.integers(-20, nsym + 12, nsym)
+    params[0][1, 5], params[1][1, 5], params[2][1, 5] = -5, 40, (1 << 31) - 1
+    return ([torch.from_numpy(cb), torch.from_numpy(bo)]
+            + [torch.from_numpy(p.astype(np.int32)) for p in params]
+            + [1024, 40])
 
 
 def phase_bzip2_lzma(data: bytes, dev):
@@ -1130,8 +1237,41 @@ def check_scan(label, kernel, plain, args, cut, compare, bound):
           f"{SCAN_SLICE}-block slice (one call, device events), bound "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B at 3.35 "
           f"TB/s), longest lane {steps} serial steps")
+    st = per_step("zstd kernel", label, lambda: kernel(*args), ms, steps)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, steps=steps)
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, steps=steps, **st)
+
+
+ADV_MAXSEQ = 600   # the adversarial sequence batch's slots: below nbseq
+
+
+def seq_adversarial(args, seed: int = 4):
+    """A corrupt and edge batch for fse_sequence_scan, from a seed with
+    numpy as in tests/test_torch_zstd_decode.py's card tests: the first 16
+    blocks of the batch's real inputs (args[:7] = qbytes, qlens, nbseq,
+    fsetab, lllog, oflog, mllog) as CPU tensors, scanned at ADV_MAXSEQ
+    slots (below most blocks' nbseq). Lanes 0-3: three bit flips in the
+    section; 4-7: qlens 0, 1, the full row and past it, over random bytes;
+    8-9: next-state bases and table logs that put states outside [0, 512);
+    10-11: state reads 0-40 bits wide (the cold path); 12: nbseq below
+    0."""
+    rng = np.random.default_rng(seed)
+    q, ql, nb, fse, *logs = [t[:SCAN_SLICE].cpu().numpy().copy()
+                             for t in args[:7]]
+    QB = q.shape[1]
+    for i in range(4):
+        for k in rng.integers(0, max(int(ql[i]), 1), 3):
+            q[i, k] ^= np.uint8(1 << rng.integers(0, 8))
+    q[4:8] = rng.integers(0, 256, (4, QB), dtype=np.uint8)
+    ql[4:8] = [0, 1, QB, QB + 5]
+    base = rng.integers(-600, 1200, fse[8:10].shape)
+    fse[8:10] = (base << 16) | (fse[8:10] & 0xFFFF)
+    for lg in logs:
+        lg[8:10] = rng.integers(-3, 13, 2)
+    wide = rng.integers(0, 41, fse[10:12].shape)
+    fse[10:12] = (fse[10:12] & ~0xFF00) | (wide << 8)
+    nb[12] = -3
+    return [torch.from_numpy(a) for a in [q, ql, nb, fse] + logs]
 
 
 def max_err(got, want, live=None):
@@ -1290,6 +1430,16 @@ def phase_zstd(data: bytes, blocks, dev):
     stats["fse_sequence_scan"] = check_scan(
         "fse_sequence_scan", zdd._sequence_scan, zdd._sequence_scan_plain,
         seq_args, seq_cut, max_err, seq_bound)
+    adv = seq_adversarial(seq_args)
+    got = zdd._sequence_scan(*(a.to(dev) for a in adv), ADV_MAXSEQ)
+    check_equal("fse_sequence_scan (adversarial batch)",
+                [g.cpu() for g in got],
+                zdd._sequence_scan_plain(*adv, ADV_MAXSEQ))
+    print(f"[zstd kernel] fse_sequence_scan vs plain on an adversarial "
+          f"batch of {SCAN_SLICE} blocks at MAXSEQ {ADV_MAXSEQ} (seeded: "
+          f"mutated sections, qlens 0 / 1 / the full row / past it, states "
+          f"outside [0, 512), state reads up to 40 bits, nbseq past MAXSEQ "
+          f"and below 0): equal on every slot")
     for name in stats:
         stats[name]["launches"] = enc.get(name, 0) + dec.get(name, 0)
     return launches + dlaunches, stats

@@ -204,6 +204,73 @@ def test_huff_step(jinf, jnp):
     assert (np.asarray(ref[1]) == 0).all()
 
 
+def _lens_params(lens_rows, nsym):
+    """Stacked canonical parameters of code-length rows (numpy)."""
+    ps = [D._canon_params(np.asarray(r, np.int64), nsym) for r in lens_rows]
+    return [np.stack(col) for col in zip(*ps)]
+
+
+def _param_sets(kind, nsym, rng):
+    """(fc, lim, rkb, perm) numpy rows of one kind for an alphabet of nsym
+    symbols."""
+    if kind == "plan":
+        _, _, params, _ = _planned()
+        p = params[:4] if nsym == 288 else params[4:]
+        _, first = np.unique(np.concatenate(p, axis=1), axis=0,
+                             return_index=True)
+        return [x[np.sort(first)] for x in p]
+    if kind == "random":  # not canonical: a random range per length
+        n = 6
+        ls = np.arange(16)
+        fc = rng.integers(-2, 1 << ls, (n, 16))
+        lim = fc + rng.integers(-1, (1 << ls) // 2 + 2, (n, 16))
+        lim[ls < rng.integers(1, 14, (n, 1))] = 0   # no short codes
+        rkb = rng.integers(-40, nsym + 40, (n, 16))
+        # ranks past int32: rkb + code - fc in 64 bits, then clipped
+        fc[0, 5], lim[0, 5], rkb[0, 5] = -5, 40, (1 << 31) - 1
+        rkb[1, 6] = -(1 << 31)
+        perm = rng.integers(-20, nsym + 12, (n, nsym))
+        return [a.astype(np.int32) for a in (fc, lim, rkb, perm)]
+    rows = []
+    for _ in range(6):
+        lens = np.zeros(nsym, np.int64)
+        k = rng.integers(2, nsym)
+        idx = rng.choice(nsym, k, replace=False)
+        if kind == "incomplete":  # Kraft sum < 1, lengths up to 15
+            lens[idx] = rng.integers(3, 16, k)
+        else:  # over-subscribed: Kraft sum > 1
+            lens[idx] = rng.integers(1, 6, k)
+        rows.append(lens)
+    if kind == "degenerate":  # all lengths 0; one symbol of length 1
+        rows = [np.zeros(nsym, np.int64), np.eye(1, nsym, 5)[0].astype(int)]
+    return _lens_params(rows, nsym)
+
+
+@pytest.mark.parametrize("kind", ["plan", "random", "incomplete",
+                                  "oversubscribed", "degenerate"])
+def test_root_tables_match_huff_step(kind):
+    """The kernel's lookup scheme (a root table of the low R bits, the walk
+    over lengths R+1..15 where the entry is long) gives _huff_step's answer
+    on every one of the 32,768 15-bit peeks, at the kernel's widths for the
+    litlen and distance alphabets. Exact equality of nbits, and of sym
+    wherever the code is valid (nbits > 0: a bad code's sym is unused)."""
+    rng = np.random.default_rng(11)
+    peeks = torch.arange(1 << 15)
+    for nsym, R in ((288, D.ROOT_BITS_L), (32, D.ROOT_BITS_D)):
+        fc, lim, rkb, perm = map(_t, _param_sets(kind, nsym, rng))
+        n = fc.shape[0]
+        tables = D.root_tables(fc, lim, rkb, perm, R)
+        sym, nbits = D.root_decode(peeks.expand(n, -1), fc, lim, rkb, perm,
+                                   R, tables)
+        rep = [x.repeat_interleave(1 << 15, 0) for x in (fc, lim, rkb, perm)]
+        w_sym, w_nb = D._huff_step(peeks.repeat(n), *rep)
+        assert torch.equal(nbits.reshape(-1), w_nb)
+        ok = w_nb > 0
+        assert torch.equal(sym.reshape(-1)[ok], w_sym[ok])
+        if kind in ("random", "incomplete"):  # the long path ran
+            assert bool((tables[1] == 0).any()) and bool((w_nb > R).any())
+
+
 def test_plan_chunks_matches_jax(jinf):
     chunks, _ = _batch()
     extra = [_raw(_payload("random", 3000, 7), 6), b"\x07\xff\xff\xff",
@@ -433,6 +500,74 @@ def test_kernel_matches_plain(cuda_device):
     assert inflate_scan.launches["inflate_symbol_scan"] == n0 + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+_STATIC_L = [8] * 144 + [9] * 112 + [7] * 24 + [8] * 8
+_STATIC_D = [5] * 32
+
+
+def _adversarial(case, rng):
+    """A corrupt or edge batch for the kernel: (cbytes, bitoff, params, B,
+    MAXSEQ) numpy arrays and widths, N = 8 lanes of C = 2048 bytes."""
+    N, C, B_ = 8, 2048, 1024
+    maxseq = B_ // 3 + 2
+    cb = rng.integers(0, 256, (N, C), dtype=np.uint8)
+    bo = rng.integers(0, 64, N).astype(np.int32)
+    static = _lens_params([_STATIC_L] * N, 288) + _lens_params(
+        [_STATIC_D] * N, 32)
+    params = static
+    if case == "random_bytes":  # real parameters on random streams
+        _, _, planned, _ = _planned()
+        params = [np.concatenate([p[:N // 2], s[:N - N // 2]])
+                  for p, s in zip(planned, static)]
+    elif case in ("random_params", "incomplete", "oversubscribed"):
+        kind = "random" if case == "random_params" else case
+        params = [np.concatenate([p, p])[:N]
+                  for p in _param_sets(kind, 288, rng)
+                  + _param_sets(kind, 32, rng)]
+    elif case == "bitoff_near_end":  # clamped reads of the last word
+        bo = (8 * C - rng.integers(-300, 400, N)).astype(np.int32)
+        cb[:, -16:] = rng.integers(0, 256, (N, 16), dtype=np.uint8)
+    elif case == "step_cap":  # 1-bit literal codes: b + 4 steps
+        lens = np.zeros(288, np.int64)
+        lens[[65, 200]] = 1
+        params = _lens_params([lens] * N, 288) + static[4:]
+    elif case == "nseq_over_maxseq":  # 1-bit matches and distances
+        lens = np.zeros(288, np.int64)
+        lens[[65, 257, 270]] = [2, 1, 2]
+        dl = np.zeros(32, np.int64)
+        dl[[0, 29]] = 1
+        params = _lens_params([lens] * N, 288) + _lens_params([dl] * N, 32)
+        maxseq = 40
+    return cb, bo, [np.ascontiguousarray(p, np.int32) for p in params], \
+        B_, maxseq
+
+
+_ADVERSARIAL = ["random_bytes", "random_params", "incomplete",
+                "oversubscribed", "bitoff_near_end", "step_cap",
+                "nseq_over_maxseq"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _ADVERSARIAL)
+def test_kernel_matches_plain_adversarial(cuda_device, case):
+    """The kernel against its plain version, output for output (exact), on
+    corrupt and edge lanes: random streams, random or incomplete or
+    over-subscribed parameters (codes up to 15 bits: the long path),
+    positions at and past the row's end, the b + 4 step cap, and more
+    matches than MAXSEQ."""
+    rng = np.random.default_rng(_ADVERSARIAL.index(case))
+    cb, bo, params, B_, maxseq = _adversarial(case, rng)
+    args = [_t(a) for a in [cb, bo] + params]
+    want = D._scan_compact(*args, B_, maxseq)
+    got = D._scan_compact(*(a.to(cuda_device) for a in args), B_, maxseq)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if case == "step_cap":
+        assert (want[5] == B_ + 4).all()
+    if case == "nseq_over_maxseq":
+        assert (want[4] > maxseq).all()
 
 
 @pytest.mark.cuda

@@ -280,6 +280,60 @@ def test_scan_kernels_match_plain(cuda_device, plan_batch):
         assert torch.equal(g.cpu(), w)
 
 
+_SEQ_ADVERSARIAL = ["mutated_qbytes", "qlens_edges", "states_outside",
+                    "wide_reads", "nbseq_over_maxseq"]
+
+
+def _seq_adversarial(case, plan_batch, rng):
+    """The sequence scan's inputs (qbytes, qlens, nbseq, fsetab, lllog,
+    oflog, mllog) of the planned batch, made corrupt or edgy, and MAXSEQ."""
+    (meta, _, _, _, qbytes, _), _, fse, (_, MAXSEQ) = plan_batch
+    qbytes, fse = qbytes.copy(), fse.copy()
+    N, QB = qbytes.shape
+    qlens = meta[:, D.PM_SEQLEN].astype(np.int32)
+    nbseq = meta[:, D.PM_NBSEQ].astype(np.int32)
+    logs = [meta[:, f].astype(np.int32).copy()
+            for f in (D.PM_LLLOG, D.PM_OFLOG, D.PM_MLLOG)]
+    if case == "mutated_qbytes":  # bit flips inside each section
+        for i in range(N):
+            for _ in range(3):
+                k = rng.integers(0, max(int(qlens[i]), 1))
+                qbytes[i, k] ^= np.uint8(1 << rng.integers(0, 8))
+    elif case == "qlens_edges":  # empty, one byte, the full row, past it
+        qbytes[:, :] = rng.integers(0, 256, qbytes.shape, dtype=np.uint8)
+        qlens[:] = rng.choice([0, 1, QB, QB + 5], N)
+        qlens[:4] = [0, 1, QB, QB + 5]
+    elif case == "states_outside":  # next states and first states past 511
+        base = rng.integers(-600, 1200, fse.shape)
+        fse = ((base << 16) | (fse & 0xFFFF)).astype(np.int32)
+        for lg in logs:
+            lg[:] = rng.integers(-3, 13, N)
+    elif case == "wide_reads":  # state reads of 17-40 bits: the cold path
+        nb = rng.integers(0, 41, fse.shape)
+        fse = ((fse & ~0xFF00) | (nb << 8)).astype(np.int32)
+    elif case == "nbseq_over_maxseq":
+        nbseq[:] = rng.integers(MAXSEQ - 5, MAXSEQ + 60, N)
+        nbseq[0] = -3
+    return [qbytes, qlens, nbseq, fse] + logs, MAXSEQ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SEQ_ADVERSARIAL)
+def test_sequence_scan_matches_plain_adversarial(cuda_device, plan_batch,
+                                                 case):
+    """fse_sequence_scan against its plain loop, every slot (exact), on
+    corrupt and edge lanes: mutated sections, qlens of 0, 1, the full row
+    and past it, states outside [0, 512), state reads wider than 16 bits,
+    and nbseq above MAXSEQ (and negative)."""
+    rng = np.random.default_rng(_SEQ_ADVERSARIAL.index(case))
+    arrs, MAXSEQ = _seq_adversarial(case, plan_batch, rng)
+    sargs = [_t(a) for a in arrs]
+    want = D._sequence_scan(*sargs, MAXSEQ)
+    got = D._sequence_scan(*(a.to(cuda_device) for a in sargs), MAXSEQ)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.cuda
 def test_decode_on_card(cuda_device):
     blocks = [_payload(k, 65536, s) for s, k in enumerate(KINDS)] + BLOCKS
