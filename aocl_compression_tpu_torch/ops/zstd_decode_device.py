@@ -78,7 +78,8 @@ def _read_back(words, pos, nbits):
     wi = bpc >> 5
     sh = bpc & 31
     w0 = torch.where(wi < W, _lane_take(words, torch.clamp(wi, max=W - 1)),
-                     0x80000000)   # take_along_axis past the end: INT_MIN
+                     0xFFFFFFFF)   # take_along_axis past the end of
+                                   # uint32 words: UINT_MAX
     w1 = torch.where(wi + 1 < W,
                      _lane_take(words, torch.clamp(wi + 1, max=W - 1)), 0)
     v = (w0 >> sh) | torch.where(sh == 0, 0, (w1 << (32 - sh)) & _MASK32)

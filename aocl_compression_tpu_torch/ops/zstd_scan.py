@@ -1,17 +1,22 @@
 """Wrappers of the zstd tiers' serial-scan kernels (csrc/zstd_scan.cu).
 
-Three hand kernels for sm_90a, one CUDA block per lane with the lane's
-tables in shared memory (one thread decodes; fse_sequence_scan reads
-through a register bit buffer fed by a cp.async ring), built with nvcc
-into _build/ at first use and bound with ctypes, as ops/compact.py builds
-compact.cu:
+Three hand kernels for sm_90a, one CUDA block per zstd block with the
+block's tables in shared memory, built with nvcc into _build/ at first use
+and bound with ctypes, as ops/compact.py builds compact.cu:
 
   fse_encode_scan    — the encoder's 3-state reverse FSE scan
-                       (ops/zstd_device._fse_scan);
+                       (ops/zstd_device._fse_scan): three threads run the
+                       ll, ml and of state chains in step while the block's
+                       other warps stage their table pairs a chunk ahead in
+                       shared memory and write the rows a chunk behind;
   huf_literal_scan   — the decoder's Huffman literal scan, one lane per
-                       stream (ops/zstd_decode_device._literal_scan);
+                       stream and one warp per lane
+                       (ops/zstd_decode_device._literal_scan);
   fse_sequence_scan  — the decoder's FSE sequence scan, one lane per block
                        (ops/zstd_decode_device._sequence_scan).
+
+The two decoders read their streams through a register bit buffer fed by
+a cp.async ring in shared memory, so no global load sits on a step.
 
 Each wrapper takes CUDA tensors only, allocates its outputs with
 torch.empty, launches on the current stream and raises when the launch

@@ -69,9 +69,11 @@ non-zero before the last line:
      csrc/zstd_scan.cu against its plain loop on the first 16 blocks of the
      batch's real inputs, its graph-replay time on the whole batch, its HBM
      bound, its longest lane's serial steps, µs and SM cycles per step
-     and the serial floor; fse_sequence_scan also on a seeded adversarial
-     batch made from those 16 blocks (phase 3 holds the compaction at the
-     zstd shapes 1,024 x 23,040 and 256 x 82,432);
+     and the serial floor; each of the three also on a seeded adversarial
+     batch made from those 16 blocks (corrupt streams and sections, edge
+     counts and lengths, codes, table logs and table values outside their
+     ranges; phase 3 holds the compaction at the zstd shapes 1,024 x
+     23,040 and 256 x 82,432);
  11. bzip2 and lzma on the same corpus: setup("bzip2", level=9) (host)
      beside setup("bzip2", level=9, opt_var=2) (the device block sort),
      setup("lzma", level=6) (host) beside setup("lzma", level=6,
@@ -344,14 +346,36 @@ def shape_times(compact, label, bodies, sizes):
           f"{lib_ms:.4f}, bound_ms {bound:.4f} ({nbytes} B at 3.35 TB/s)")
 
 
+def device_ops(fn, tries: int = 5):
+    """Profile one fn() call; returns its device ops, {name: [count,
+    device us]}, and the number of windows lost. The profiler now and then
+    returns a window that holds no device event at all, though fn ran its
+    kernels; such a window says nothing of what fn ran, so fn is profiled
+    again, up to `tries` windows. A window with any device event is
+    returned as it is."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for lost in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {e.key: [e.count, e.self_device_time_total]
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if ops:
+            return ops, lost
+    raise AssertionError(f"the profiler recorded no device op in {tries} "
+                         f"windows")
+
+
 def phase_kernel(out, sizes, slices):
     """compact_rows kernels against their plain version on the card, a
     profiler window over one call on the encode output, and the times of
     the kernels, the plain version, the index_select yardstick, the HBM
     bound and the pinned d2h beside its measured link bound. `slices`
     maps a label to the (bodies, sizes) of another path's call."""
-    from torch.profiler import ProfilerActivity, profile
-
     from aocl_compression_tpu_torch.ops import compact
     dev = out.device
     edge = sizes.clone()
@@ -369,23 +393,16 @@ def phase_kernel(out, sizes, slices):
         err = max(err, check_compact(compact, label, bodies, sz_in)[1])
 
     # the main path's call: only the port's two kernels run on the device
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        compact.compact_rows(out, sizes)
-        torch.cuda.synchronize()
-    dev_ops = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    ops = {e.key: e.count for e in dev_ops}
-    print("[kernel] profiler window over one compact_rows: device ops "
-          "(count, device us): " + json.dumps(
-              {e.key: [e.count, e.self_device_time_total] for e in dev_ops}))
+    ops, lost = device_ops(lambda: compact.compact_rows(out, sizes))
+    print(f"[kernel] profiler window over one compact_rows ({lost} windows "
+          f"with no device event profiled again): device ops (count, device "
+          f"us): " + json.dumps(ops))
     ours = ("compact_layout_kernel", "compact_copy_bulk_kernel")
-    if (sum(ops.values()) != 2
+    if (sum(c for c, _ in ops.values()) != 2
             or not all(any(k in name for name in ops) for k in ours)
             or not all(any(k in name for k in ours) for name in ops)):
-        raise AssertionError("compact_rows ran other device operations than "
-                             "its layout and copy kernels")
+        raise AssertionError(f"compact_rows ran other device operations than "
+                             f"its layout and copy kernels: {ops}")
 
     library = yardstick(compact, out, sizes)
     times = {}
@@ -646,21 +663,13 @@ def phase_lz4hc(data: bytes, blocks, arr, lens):
 
     # the launches of one _greedy_parse call (the exact parse's marking:
     # its chain step and _chain_marks) on the level-9 candidates
-    from torch.profiler import ProfilerActivity, profile
     mlen, _, valid = ld._find_matches(arr, lens, B, depth=depth, nw=nw)
     for _ in range(lazy):
         valid = ld._lazy_demote(mlen, valid)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ld._greedy_parse(mlen, valid, B)
-        torch.cuda.synchronize()
-    dev_ops = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = device_ops(lambda: ld._greedy_parse(mlen, valid, B))[0].values()
     print(f"[lz4hc] one _greedy_parse call (N={N}, C={B}): "
-          f"{sum(e.count for e in dev_ops)} device launches, "
-          f"{sum(e.self_device_time_total for e in dev_ops) / 1e3:.3f} ms "
-          f"device time (profiler)")
+          f"{sum(c for c, _ in ops)} device launches, "
+          f"{sum(us for _, us in ops) / 1e3:.3f} ms device time (profiler)")
     return launches, c, peak_gb
 
 
@@ -913,25 +922,17 @@ def phase_zlib(data: bytes, blocks, dev):
 
     # the launches and device time of the dynamic path's two
     # _kraft_lengths calls, on the corpus blocks' byte histograms
-    from torch.profiler import ProfilerActivity, profile
     arr = torch.from_numpy(np.frombuffer(data, np.uint8).reshape(N, B)
                            .astype(np.int64)).to(dev)
     hist = torch.zeros((N, 288), dtype=torch.int32, device=dev)
     hist.scatter_add_(1, arr, torch.ones_like(arr, dtype=torch.int32))
     hist[:, 256] += 1
     hd = torch.ones((N, 32), dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dd._kraft_lengths(hist, 288)
-        dd._kraft_lengths(hd, 32)
-        torch.cuda.synchronize()
-    dev_ops = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = device_ops(lambda: (dd._kraft_lengths(hist, 288),
+                              dd._kraft_lengths(hd, 32)))[0].values()
     print(f"[zlib2] _kraft_lengths for 288 + 32 symbols (N={N}): "
-          f"{sum(e.count for e in dev_ops)} device launches, "
-          f"{sum(e.self_device_time_total for e in dev_ops) / 1e3:.3f} ms "
-          f"device time (profiler)")
+          f"{sum(c for c, _ in ops)} device launches, "
+          f"{sum(us for _, us in ops) / 1e3:.3f} ms device time (profiler)")
     dlaunches, inflate = phase_inflate(data, streams, dev)
     return total, dlaunches, inflate
 
@@ -1274,6 +1275,61 @@ def seq_adversarial(args, seed: int = 4):
     return [torch.from_numpy(a) for a in [q, ql, nb, fse] + logs]
 
 
+def enc_adversarial(args, seed: int = 5):
+    """A corrupt and edge batch for fse_encode_scan, from a seed with numpy
+    as in tests/test_torch_zstd.py's card tests: the first 16 blocks of the
+    batch's real inputs (xs, nseq, nxt, dnb, dfs) as CPU tensors, cut to
+    ADV_MAXSEQ sequences. Lanes 0-3: nseq 0, 1, ADV_MAXSEQ and below 0;
+    4-5: codes c - 64 (they count from the end of a table) on a quarter of
+    the rows; 6-7: codes in [-300, 300); 8-9: dnb / dfs over the whole
+    int32 range (bit counts outside [0, 32), sums that wrap); 10-11: next
+    states over it (indices outside [0, 512))."""
+    rng = np.random.default_rng(seed)
+    xs, nseq, nxt, dnb, dfs = [t[:SCAN_SLICE].cpu().numpy().copy()
+                               for t in args]
+    xs = np.ascontiguousarray(xs[:, :ADV_MAXSEQ])
+    nseq = np.minimum(nseq, ADV_MAXSEQ)
+    nseq[:4] = [0, 1, ADV_MAXSEQ, -3]
+    for i in (4, 5, 6, 7):
+        for col in (0, 3, 6):
+            hit = rng.random(ADV_MAXSEQ) < 0.25
+            wild = (xs[i, :, col] - 64 if i < 6
+                    else rng.integers(-300, 300, ADV_MAXSEQ))
+            xs[i, :, col] = np.where(hit, wild, xs[i, :, col])
+    dnb[8:10] = rng.integers(-2**31, 2**31, dnb[8:10].shape)
+    dfs[8:10] = rng.integers(-2**31, 2**31, dfs[8:10].shape)
+    nxt[10:12] = rng.integers(-2**31, 2**31, nxt[10:12].shape)
+    return [torch.from_numpy(a) for a in (xs, nseq, nxt, dnb, dfs)]
+
+
+def lit_adversarial(args, seed: int = 6):
+    """A corrupt and edge batch for huf_literal_scan, from a seed with
+    numpy as in tests/test_torch_zstd_decode.py's card tests: the first 16
+    blocks (64 stream lanes) of the batch's real inputs (sbytes, slens,
+    counts, huftab, huflog) as CPU tensors. Lanes 0-3: three bit flips in
+    the stream; 4-8: slens 0, 1, SB, SB + 5 and 2^28 + 3 over random bytes;
+    9-12: hlog -1, 0, 12 and 40; 13-14: counts past MAXL and below 0;
+    block 4 (lanes 16-19): half its entries read 0 or 15 bits."""
+    rng = np.random.default_rng(seed)
+    sb_, sl, cnt, huf, hl = [a.cpu().numpy().copy() for a in (
+        args[0][:4 * SCAN_SLICE], args[1][:4 * SCAN_SLICE],
+        args[2][:4 * SCAN_SLICE], args[3][:SCAN_SLICE],
+        args[4][:4 * SCAN_SLICE])]
+    maxl = args[5]
+    SB = sb_.shape[1]
+    for i in range(4):
+        for k in rng.integers(0, max(int(sl[i]), 1), 3):
+            sb_[i, k] ^= np.uint8(1 << rng.integers(0, 8))
+    sb_[4:9] = rng.integers(0, 256, (5, SB), dtype=np.uint8)
+    sl[4:9] = [0, 1, SB, SB + 5, (1 << 28) + 3]
+    hl[9:13] = [-1, 0, 12, 40]
+    cnt[13:15] = [maxl + 37, -5]
+    hit = rng.random(huf.shape[1]) < 0.5
+    huf[4] = np.where(hit, (huf[4] & ~15) | rng.choice([0, 15], hit.shape),
+                      huf[4])
+    return [torch.from_numpy(a) for a in (sb_, sl, cnt, huf, hl)], maxl
+
+
 def max_err(got, want, live=None):
     err = 0
     for g, w in zip(got, want):
@@ -1440,6 +1496,27 @@ def phase_zstd(data: bytes, blocks, dev):
           f"mutated sections, qlens 0 / 1 / the full row / past it, states "
           f"outside [0, 512), state reads up to 40 bits, nbseq past MAXSEQ "
           f"and below 0): equal on every slot")
+    adv = enc_adversarial(enc_args)
+    got = zd._fse_scan(*(a.to(dev) for a in adv))
+    check_equal("fse_encode_scan (adversarial batch)",
+                [g.cpu() for g in got], zd._fse_scan_plain(*adv))
+    print(f"[zstd kernel] fse_encode_scan vs plain on an adversarial batch "
+          f"of {SCAN_SLICE} blocks at MAXSEQ {ADV_MAXSEQ} (seeded: nseq 0 / "
+          f"1 / MAXSEQ / below 0, codes outside [0, 64) and negative, dnb / "
+          f"dfs / next states over the int32 range): equal on every output")
+    adv, adv_maxl = lit_adversarial(lit_args)
+    got = zdd._literal_scan(*(a.to(dev) for a in adv), adv_maxl).cpu()
+    want = zdd._literal_scan_plain(*adv, adv_maxl)
+    live = (torch.arange(adv_maxl)[None]
+            < torch.clamp(adv[2], max=adv_maxl)[:, None])
+    if not torch.equal(got[live], want[live]):
+        raise AssertionError("huf_literal_scan (adversarial batch) differs "
+                             "from its plain version")
+    print(f"[zstd kernel] huf_literal_scan vs plain on an adversarial batch "
+          f"of {4 * SCAN_SLICE} stream lanes at MAXL {adv_maxl} (seeded: "
+          f"mutated streams, slens 0 / 1 / SB / SB + 5 / 2^28 + 3, hlog -1 / "
+          f"0 / 12 / 40, counts past MAXL and below 0, entries of 0 and 15 "
+          f"bits): equal on every slot below each lane's count")
     for name in stats:
         stats[name]["launches"] = enc.get(name, 0) + dec.get(name, 0)
     return launches + dlaunches, stats

@@ -258,6 +258,61 @@ def test_fse_scan_plain_matches_scalar_walk(level):
         assert fin[i].tolist() == est
 
 
+_FSE_ADVERSARIAL = ["nseq_edges", "codes_negative", "codes_outside",
+                    "tables_wild"]
+
+
+def _fse_adversarial(case, rng):
+    """The FSE scan's inputs (xs, nseq, nxt, dnb, dfs) of the level-1 encode
+    of BLOCKS as numpy arrays, made corrupt or edgy: nseq of 0, 1, MAXSEQ
+    and below 0 (the rows past a block's own count copy its real rows);
+    codes c - 64, which count from the end of a table to code c; codes far
+    outside [0, 64); dnb / dfs / nxt values that drive next-state indices
+    outside [0, 512) and bit counts outside [0, 32), sums that wrap."""
+    xs, nseq, nxt, dnb, dfs = (a.numpy().copy() for a in _scan_inputs(1))
+    N, MAXSEQ, _ = xs.shape
+    if case == "nseq_edges":
+        for i in range(N):
+            if nseq[i] > 0:
+                xs[i, nseq[i]:] = xs[i, rng.integers(0, nseq[i],
+                                                     MAXSEQ - nseq[i])]
+        nseq[:] = rng.integers(0, MAXSEQ + 1, N)
+        nseq[:4] = [0, 1, MAXSEQ, -3]
+    elif case in ("codes_negative", "codes_outside"):
+        for col in (0, 3, 6):
+            hit = rng.random((N, MAXSEQ)) < 0.25
+            wild = (xs[:, :, col] - 64 if case == "codes_negative"
+                    else rng.integers(-300, 300, (N, MAXSEQ)))
+            xs[:, :, col] = np.where(hit, wild, xs[:, :, col])
+    elif case == "tables_wild":
+        def wild(a, small):
+            pick = rng.integers(0, 3, a.shape)
+            return np.select([pick == 0, pick == 1], [
+                rng.integers(-2**31, 2**31, a.shape),
+                rng.integers(-small, small, a.shape)], a).astype(np.int32)
+        dnb, dfs = wild(dnb, 1 << 22), wild(dfs, 2048)
+        nxt = wild(nxt, 1 << 17)
+    return xs, nseq, nxt, dnb, dfs
+
+
+@pytest.mark.parametrize("case", ["nseq_edges", "codes_negative"])
+def test_fse_scan_plain_adversarial_matches_scalar_walk(case):
+    """The plain scan on edge counts and negative codes, where the scalar
+    walk (Python indexing counts a negative index from the end, as the
+    scan's tab_index does) is defined."""
+    rng = np.random.default_rng(_FSE_ADVERSARIAL.index(case))
+    xs, nseq, nxt, dnb, dfs = _fse_adversarial(case, rng)
+    pv, pn, fin = tdev._fse_scan_plain(*map(torch.from_numpy,
+                                            (xs, nseq, nxt, dnb, dfs)))
+    for i in range(xs.shape[0]):
+        ns = max(int(nseq[i]), 0)
+        ev, en, est = _scalar_pieces(xs[i].tolist(), ns, nxt[i].tolist(),
+                                     dnb[i].tolist(), dfs[i].tolist())
+        assert pv[i, :ns].tolist() == ev and pn[i, :ns].tolist() == en
+        assert not pv[i, ns:].any() and not pn[i, ns:].any()
+        assert fin[i].tolist() == est
+
+
 @pytest.mark.parametrize("G", [4, 0])
 def test_make_encoder(jz, jax_mods, G):
     """Every output of the batched encoder: streams, sizes, literals,
@@ -335,6 +390,19 @@ def test_fse_encode_kernel_matches_plain(cuda_device, level):
     got = tdev._fse_scan(*(a.to(cuda_device) for a in args))
     torch.cuda.synchronize()
     assert zstd_scan.launches["fse_encode_scan"] == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _FSE_ADVERSARIAL)
+def test_fse_encode_kernel_matches_plain_adversarial(cuda_device, case):
+    """fse_encode_scan against its plain loop, every output (exact), on
+    edge counts, codes outside [0, 64) and wild tables."""
+    rng = np.random.default_rng(_FSE_ADVERSARIAL.index(case))
+    args = [torch.from_numpy(a) for a in _fse_adversarial(case, rng)]
+    want = tdev._fse_scan_plain(*args)
+    got = tdev._fse_scan(*(a.to(cuda_device) for a in args))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 

@@ -134,6 +134,24 @@ def test_read_back_and_init_pos(jdd, jnp):
         D._init_pos(_t(sbytes), _t(slen)).numpy(), np.asarray(ref))
 
 
+def test_read_back_past_the_row_matches_jax(jdd, jnp):
+    """Reads that reach past a row's last word: the JAX package's
+    take_along_axis fills a uint32 word past the end with UINT_MAX."""
+    import jax
+    rng = np.random.default_rng(2)
+    L, W = 24, 3
+    words = rng.integers(0, 1 << 32, (L, W), dtype=np.uint64)
+    pos = rng.integers(32 * W - 20, 32 * W + 80, L).astype(np.int32)
+    nbits = rng.integers(0, 32, L).astype(np.int32)
+    ref = jax.jit(jdd._read_back)(jnp.asarray(words.astype(np.uint32)),
+                                  jnp.asarray(pos), jnp.asarray(nbits))
+    got = D._read_back(_t(words.astype(np.int64)), _t(pos).long(),
+                       _t(nbits))
+    assert (pos - nbits >= 32 * W).sum() > 3
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
 @pytest.fixture(scope="module")
 def plan_batch():
     src, metas, hufs, fses = _plans()
@@ -166,6 +184,70 @@ def test_scans_plain_match_jax(jdd, jnp, plan_batch):
     assert int(meta[:, D.PM_NBSEQ].max()) > 100
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+_LIT_ADVERSARIAL = ["mutated_streams", "slens_edges", "slens_huge",
+                    "hlog_edges", "counts_edges", "entry_bits"]
+
+
+def _lit_adversarial(case, plan_batch, rng):
+    """The literal scan's inputs (sbytes, slens, counts, huftab, huflog) of
+    the planned batch as numpy arrays, made corrupt or edgy, and MAXL."""
+    (meta, sbytes, slens, scounts, _, _), huf, _, (MAXL, _) = plan_batch
+    L, SB = 4 * len(meta), sbytes.shape[2]
+    sbytes = sbytes.reshape(L, SB).copy()
+    slens = slens.reshape(L).astype(np.int32)
+    counts = scounts.reshape(L).astype(np.int32)
+    huf = huf.astype(np.int32)
+    hlog = np.repeat(meta[:, D.PM_HUFLOG], 4).astype(np.int32)
+    if case == "mutated_streams":  # bit flips inside each stream
+        for i in range(L):
+            for k in rng.integers(0, max(int(slens[i]), 1), 3):
+                sbytes[i, k] ^= np.uint8(1 << rng.integers(0, 8))
+    elif case in ("slens_edges", "slens_huge"):  # over random bytes
+        sbytes[:] = rng.integers(0, 256, sbytes.shape, dtype=np.uint8)
+        if case == "slens_edges":  # empty, one byte, the full row, past it
+            slens[:] = rng.choice([0, 1, SB, SB + 5], L)
+            slens[:4] = [0, 1, SB, SB + 5]
+        else:  # a start bit past 2^31: positions must not wrap
+            slens[::2] = (1 << 28) + 3
+    elif case == "hlog_edges":
+        hlog[:] = rng.choice([-1, 0, 12, 40], L)
+        hlog[:4] = [-1, 0, 12, 40]
+    elif case == "counts_edges":  # past MAXL and below 0
+        counts[:] = np.where(rng.random(L) < 0.5,
+                             rng.choice([MAXL + 37, -5], L), counts)
+        counts[:2] = [MAXL + 37, -5]
+    elif case == "entry_bits":  # entries that read 0 or 15 bits
+        hit = rng.random(huf.shape) < 0.5
+        huf = np.where(hit, (huf & ~15) | rng.choice([0, 15], huf.shape),
+                       huf).astype(np.int32)
+    return [sbytes, slens, counts, huf, hlog], MAXL
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_literal_scan(MAXL):
+    import jax
+    from aocl_compression_tpu.ops import zstd_decode_device
+    return jax.jit(functools.partial(zstd_decode_device._literal_scan,
+                                     MAXL=MAXL))
+
+
+# slens_huge is left out: there the JAX package's int32 bit positions wrap
+# and the plain version's int64 ones do not
+@pytest.mark.parametrize("case", [c for c in _LIT_ADVERSARIAL
+                                  if c != "slens_huge"])
+def test_literal_scan_plain_adversarial_matches_jax(jnp, plan_batch, case):
+    """The plain literal scan against the JAX package's on the card test's
+    corrupt and edge inputs, every slot below each lane's count."""
+    rng = np.random.default_rng(_LIT_ADVERSARIAL.index(case))
+    arrs, MAXL = _lit_adversarial(case, plan_batch, rng)
+    ref = np.asarray(_jax_literal_scan(MAXL)(
+        *map(jnp.asarray, arrs))).astype(np.uint8)
+    got = D._literal_scan(*map(_t, arrs), MAXL).numpy()
+    live = np.arange(MAXL)[None] < arrs[2][:, None]
+    assert live.any()
+    np.testing.assert_array_equal(got[live], ref[live])
 
 
 def test_make_decoder_matches_jax(jdd, jnp, plan_batch):
@@ -332,6 +414,23 @@ def test_sequence_scan_matches_plain_adversarial(cuda_device, plan_batch,
     got = D._sequence_scan(*(a.to(cuda_device) for a in sargs), MAXSEQ)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _LIT_ADVERSARIAL)
+def test_literal_scan_matches_plain_adversarial(cuda_device, plan_batch,
+                                                case):
+    """huf_literal_scan against its plain loop, every slot below each lane's
+    count (exact), on mutated streams, slens of 0, 1, the full row, past it
+    and past 2^28, hlog of -1, 0, 12 and 40, counts past MAXL and below 0,
+    and entries of 0 and 15 bits."""
+    rng = np.random.default_rng(_LIT_ADVERSARIAL.index(case))
+    arrs, MAXL = _lit_adversarial(case, plan_batch, rng)
+    args = [_t(a) for a in arrs]
+    want = D._literal_scan(*args, MAXL)
+    got = D._literal_scan(*(a.to(cuda_device) for a in args), MAXL).cpu()
+    live = torch.arange(MAXL)[None] < args[2][:, None]
+    assert torch.equal(got[live], want[live])
 
 
 @pytest.mark.cuda
