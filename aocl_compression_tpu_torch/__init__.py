@@ -19,11 +19,19 @@ Quick start:
 
 ``setup(..., device="cpu")`` runs the device tiers' plain PyTorch versions
 on the CPU.
+
+Beside the API, as in the JAX package: CompressStream / DecompressStream
+(streaming.py, host only), LZ4 frames (codecs/lz4_frame.py; a device
+max_tier runs the device encoder), .xz (codecs/xz.py), the upstream-named
+native API (native_api.py), zstd dictionary training
+(codecs/zstd.train_dictionary), profiling hooks (utils/profiling.py) and
+the bench CLI (``python -m aocl_compression_tpu_torch.bench``).
 """
 
 from .api import (CompressionError, ErrorCode, Handle, Method,  # noqa: F401
                   Stats, compress, compress_bound, decompress, destroy,
                   get_codec, list_codecs, setup, version)
+from .streaming import CompressStream, DecompressStream  # noqa: F401
 from .utils.config import get_config, set_config  # noqa: F401
 
 __version__ = "0.1.0"

@@ -141,6 +141,66 @@ class ZstdCodec(Codec):
 
 # --- host-tier variants -------------------------------------------------------
 
+def train_dictionary(samples: Sequence[bytes], dict_size: int = 16384,
+                     level: int = 3, entropy: bool = True) -> bytes:
+    """Train a zstd dictionary from sample buffers (host code; the JAX
+    package's trainer, byte for byte).
+
+    Content: fastCover-class selection, as the reference's dictBuilder
+    (ZDICT_trainFromBuffer): k-byte segments scored by the global frequency
+    of their 8-byte dmers, the best segment of each data epoch, with the
+    chosen segment's dmer frequencies zeroed so later epochs reward new
+    coverage; ascending by score, so the most valuable segments land at the
+    dictionary's tail where offsets are shortest. entropy=True (default)
+    prepends the ZDICT entropy header (dictID, literal Huffman table, FSE
+    tables, repcodes) built from the literals and sequence codes that zstd
+    emits on the samples against the content; entropy=False returns the
+    raw-content dictionary.
+    """
+    import numpy as np
+    blob = b"".join(samples)
+    if entropy:
+        content_size = max(256, dict_size - 256)
+        content = (blob if len(blob) <= content_size else
+                   train_dictionary(samples, content_size, level,
+                                    entropy=False))
+        with native.ZstdStatsCapture() as st:
+            for s in samples[:256]:
+                if s:
+                    native.zstd_compress(s, level, content)
+        dict_id = (native.crc32(content) | 0x80000000) & 0xFFFFFFFF
+        header = native.zstd_build_dict_header(
+            list(st.lit), dict_id, list(st.ll), list(st.of), list(st.ml))
+        return header + content
+    if len(blob) <= dict_size:
+        return blob
+    a = np.frombuffer(blob, dtype=np.uint8)
+    D, HB, K = 8, 20, 512
+    h = np.zeros(len(a) - D + 1, dtype=np.uint64)
+    for k in range(D):
+        h = h * np.uint64(1099511628211) + a[k:len(a) - D + 1 + k]
+    hb = (h >> np.uint64(64 - HB)).astype(np.int64)
+    freq = np.bincount(hb, minlength=1 << HB).astype(np.float64)
+    npos = len(hb)
+    nseg_budget = max(1, dict_size // K)
+    epoch = max(K, npos // nseg_budget)
+    chosen = []  # (score, start)
+    for e0 in range(0, max(1, npos - K + 1), epoch):
+        e1 = min(npos, e0 + epoch + K - 1)
+        f = freq[hb[e0:e1]]
+        if len(f) < K:
+            continue
+        cs = np.concatenate([[0.0], np.cumsum(f)])
+        w = cs[K:] - cs[:-K]
+        i = int(np.argmax(w))
+        start = e0 + i
+        chosen.append((float(w[i]), start))
+        freq[hb[start:start + K]] = 0.0
+    chosen.sort()
+    parts = [blob[s:s + K] for _, s in chosen]
+    return b"".join(parts)[-dict_size:]
+
+
 @dispatch.register("zstd", "compress", TIER_HOST, "zstd_compress_host")
 def _compress_host(data: bytes, level: int, dictionary=None) -> bytes:
     return native.zstd_compress(data, level, dictionary)

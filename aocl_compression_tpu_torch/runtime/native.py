@@ -1,20 +1,26 @@
 """ctypes bindings to the shared host runtime (csrc/libaocl_tpu_host.so).
 
 The port binds the same C++ library as the JAX package, restricted to the
-symbols its codecs use: the LZ4 and LZ4HC block codecs, raw snappy, the
-deflate encoder, inflate and the inflate planner (the device inflate's
-header cracking), the bzip2 codec and its device-BWT stages (prepare,
-emit), the LZMA codec and its candidate-driven encoder, the zstd encoder,
-decoder and frame planner (the device decoder's header cracking), and the
-RAP container writer/parser. The
-library is built with ``make -C csrc`` on first use when it is missing or
-older than its sources.
+symbols its codecs and host surface use: the LZ4 and LZ4HC block codecs
+(with the linked-block encoder and the history-window decoder of LZ4
+frames), raw snappy, the deflate encoder, inflate, the inflate planner
+(the device inflate's header cracking) and the resumable inflate stream,
+gzip members, CRC-32, Adler-32, XXH32 (one-shot and streaming) and XXH64,
+the bzip2 codec, its device-BWT stages (prepare, emit) and its resumable
+decode stream, the LZMA codec, its candidate-driven encoder and the
+stateful LZMA2 chunk decoder (.xz), the zstd encoder, decoder,
+frame-at-a-time decoder, frame planner (the device decoder's header
+cracking) and the dictionary builder's statistics capture and entropy
+header, and the RAP container writer/parser. Every signature is the JAX
+binding's. The library is built with ``make -C csrc`` on first use when it
+is missing or older than its sources.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import struct
 import subprocess
 import threading
 from typing import Optional
@@ -89,6 +95,50 @@ _SIGNATURES = [
     ("atpu_zstd_frame_plan", _i64,
      [_u8p, ctypes.c_size_t, ctypes.POINTER(_i32),
       ctypes.POINTER(ctypes.c_uint16), _u32p, _i64, ctypes.POINTER(_i64)]),
+    # the host surface: LZ4 frames, streams, gzip, .xz, dictionaries
+    ("atpu_xxh32", ctypes.c_uint32, [_u8p, _i64, ctypes.c_uint32]),
+    ("atpu_xxh32_init", None, [ctypes.c_void_p, ctypes.c_uint32]),
+    ("atpu_xxh32_update", None, [ctypes.c_void_p, _u8p, _i64]),
+    ("atpu_xxh32_digest", ctypes.c_uint32, [ctypes.c_void_p]),
+    ("atpu_xxh64", ctypes.c_uint64, [_u8p, ctypes.c_size_t, ctypes.c_uint64]),
+    ("atpu_lz4_compress_continue", _i64, [_u8p, _i64, _u8p, _i64, _i32, _i64]),
+    ("atpu_lz4_decompress_dict", _i64, [_u8p, _i64, _u8p, _i64, _u8p, _i64]),
+    ("atpu_zstd_decompress_frame", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t,
+      ctypes.POINTER(ctypes.c_size_t)]),
+    ("atpu_adler32", ctypes.c_uint32,
+     [_u8p, ctypes.c_size_t, ctypes.c_uint32]),
+    ("atpu_crc32", ctypes.c_uint32, [_u8p, ctypes.c_size_t, ctypes.c_uint32]),
+    ("atpu_inflate_consumed", _i64,
+     [_u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t,
+      ctypes.POINTER(ctypes.c_size_t)]),
+    ("atpu_lzma2_ctx_new", ctypes.c_void_p, []),
+    ("atpu_lzma2_ctx_free", None, [ctypes.c_void_p]),
+    ("atpu_lzma2_decode_chunk", _i64,
+     [ctypes.c_void_p, _u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t,
+      ctypes.c_size_t, ctypes.c_uint64, _i32, _i32, ctypes.c_size_t]),
+    ("atpu_lzma2_mark_uncompressed", None, [ctypes.c_void_p]),
+    ("atpu_zstd_build_dict_header", _i64,
+     [ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32,
+      ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
+      ctypes.POINTER(ctypes.c_uint32), _u8p, ctypes.c_size_t]),
+    ("atpu_zstd_set_stats", None,
+     [ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
+      ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32)]),
+    ("atpu_inflate_stream_new", ctypes.c_void_p, [_i32]),
+    ("atpu_inflate_stream_free", None, [ctypes.c_void_p]),
+    ("atpu_inflate_stream_feed", _i64,
+     [ctypes.c_void_p, _u8p, ctypes.c_size_t]),
+    ("atpu_inflate_stream_pending", _i64, [ctypes.c_void_p]),
+    ("atpu_inflate_stream_tail", _i64, [ctypes.c_void_p]),
+    ("atpu_inflate_stream_run", _i64,
+     [ctypes.c_void_p, _u8p, ctypes.c_size_t, _i32, ctypes.POINTER(_i32)]),
+    ("atpu_bz2_stream_new", ctypes.c_void_p, []),
+    ("atpu_bz2_stream_free", None, [ctypes.c_void_p]),
+    ("atpu_bz2_stream_feed", _i64, [ctypes.c_void_p, _u8p, ctypes.c_size_t]),
+    ("atpu_bz2_stream_pending", _i64, [ctypes.c_void_p]),
+    ("atpu_bz2_stream_run", _i64,
+     [ctypes.c_void_p, _u8p, ctypes.c_size_t, _i32, ctypes.POINTER(_i32)]),
 ]
 
 
@@ -236,6 +286,78 @@ def lz4_decompressed_size(data: bytes) -> int:
     return int(lib.atpu_lz4_decompressed_size(_as_u8p(src), len(data)))
 
 
+def lz4_compress_continue(block: bytes, history: bytes,
+                          accel: int = 1) -> bytes:
+    """Compress one linked block of an LZ4 frame: matches may reference
+    `history` (the previous <= 64 KiB of the stream)."""
+    lib = get_lib()
+    hist = history[-65536:]
+    joined = _tobuf(hist + block)
+    cap = lib.atpu_lz4_compress_bound(len(block))
+    ref, dp = _alloc_out(cap)
+    srcp = ctypes.cast(_as_u8p(joined), ctypes.c_void_p).value or 0
+    n = lib.atpu_lz4_compress_continue(
+        ctypes.cast(srcp + len(hist), _u8p), len(block), dp, cap, accel,
+        len(hist))
+    if n < 0:
+        raise ValueError("lz4 linked-block compress failed")
+    return _finish_out(ref, n)
+
+
+def lz4_decompress_with_history(data: bytes, expected_size: int,
+                                history: bytes) -> bytes:
+    """Decode an LZ4 block whose back-references may reach into `history`
+    (linked blocks of an LZ4 frame). Unlike lz4_decompress this needs no
+    _DECODE_SLACK: atpu_lz4_decompress_dict checks every literal run and
+    match against dstCap, and takes its 32- and 8-byte copy ladders only
+    with mlen + 32 (resp. mlen + 8) bytes of room left
+    (csrc/lz4_host.cpp:1016-1031), so no write passes dstCap."""
+    lib = get_lib()
+    src = _tobuf(data)
+    hist = _tobuf(history) if history else np.empty(0, dtype=np.uint8)
+    ref, dp = _alloc_out(expected_size)
+    n = lib.atpu_lz4_decompress_dict(
+        _as_u8p(src), len(data), dp, expected_size,
+        _as_u8p(hist) if len(history) else _u8p(), len(history))
+    if n < 0:
+        raise ValueError("lz4 dict decompress failed (corrupt stream?)")
+    return _finish_out(ref, n)
+
+
+# --- xxHash (LZ4 frame checksums) --------------------------------------------
+
+def xxh32(data: bytes, seed: int = 0) -> int:
+    if len(data) == 0:
+        return get_lib().atpu_xxh32(_u8p(), 0, seed)
+    return get_lib().atpu_xxh32(_as_u8p(_tobuf(data)), len(data), seed)
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    return int(get_lib().atpu_xxh64(_as_u8p(_tobuf(data)), len(data), seed))
+
+
+class XXH32Stream:
+    """Incremental XXH32 (atpu_xxh32_init / update / digest over a 48-byte
+    opaque state): an LZ4 frame's content checksum without buffering."""
+
+    def __init__(self, seed: int = 0):
+        self._lib = get_lib()
+        self._st = ctypes.create_string_buffer(48)
+        self._lib.atpu_xxh32_init(ctypes.cast(self._st, ctypes.c_void_p),
+                                  seed)
+
+    def update(self, data: bytes) -> None:
+        if not data:
+            return
+        buf = _tobuf(data)
+        self._lib.atpu_xxh32_update(
+            ctypes.cast(self._st, ctypes.c_void_p), _as_u8p(buf), len(data))
+
+    def digest(self) -> int:
+        return int(self._lib.atpu_xxh32_digest(
+            ctypes.cast(self._st, ctypes.c_void_p)))
+
+
 # --- Snappy -----------------------------------------------------------------
 # The snappy decoder and inflate hold every write inside dstCap (snappy's
 # fast loop keeps its margins against the physical capacity, inflate
@@ -312,6 +434,140 @@ def inflate(data: bytes, expected_size: Optional[int] = None,
         if n == -4:
             raise ValueError("zlib: adler32 mismatch")
         raise ValueError("inflate: corrupt stream")
+
+
+def inflate_consumed(data: bytes):
+    """Raw inflate returning (decoded, source bytes consumed), so framing
+    layers (gzip members) can locate their trailers."""
+    lib = get_lib()
+    src = _tobuf(data)
+    cap = max(64, 4 * len(data))
+    consumed = ctypes.c_size_t(0)
+    while True:
+        ref, dp = _alloc_out(cap)
+        n = lib.atpu_inflate_consumed(_as_u8p(src), len(data), dp, cap,
+                                      ctypes.byref(consumed))
+        if n >= 0:
+            return _finish_out(ref, n), int(consumed.value)
+        if n == -2 and cap < (1 << 31):
+            cap *= 4
+            continue
+        raise ValueError("inflate: corrupt stream")
+
+
+def crc32(data: bytes, start: int = 0) -> int:
+    """CRC-32 (the gzip / xz polynomial)."""
+    src = _tobuf(data)
+    return int(get_lib().atpu_crc32(_as_u8p(src) if len(data) else None,
+                                    len(data), start & 0xFFFFFFFF))
+
+
+def adler32(data: bytes, start: int = 1) -> int:
+    return int(get_lib().atpu_adler32(_as_u8p(_tobuf(data)), len(data),
+                                      start))
+
+
+#: a gzip member header: deflate, no flags, no mtime, unknown OS
+GZIP_HEADER = b"\x1f\x8b\x08\x00" + b"\x00" * 4 + b"\x00\xff"
+
+
+def gzip_compress(data: bytes, level: int = 6) -> bytes:
+    """One gzip member (RFC 1952) over the raw deflate encoder."""
+    body = deflate(data, level, DEFLATE_RAW)
+    return (GZIP_HEADER + body
+            + struct.pack("<II", crc32(data), len(data) & 0xFFFFFFFF))
+
+
+def gzip_decompress(data: bytes) -> bytes:
+    """Decode one or more concatenated gzip members; verifies CRC32 and
+    ISIZE."""
+    out = bytearray()
+    pos = 0
+    while pos < len(data):
+        if len(data) - pos < 18 or data[pos:pos + 2] != b"\x1f\x8b" \
+                or data[pos + 2] != 8:
+            raise ValueError("gzip: bad header")
+        flg = data[pos + 3]
+        p = pos + 10
+        if flg & 4:  # FEXTRA
+            xlen = struct.unpack_from("<H", data, p)[0]
+            p += 2 + xlen
+        if flg & 8:  # FNAME
+            p = data.index(b"\x00", p) + 1
+        if flg & 16:  # FCOMMENT
+            p = data.index(b"\x00", p) + 1
+        if flg & 2:  # FHCRC
+            p += 2
+        # the member's trailer follows the deflate stream's final block
+        decoded, consumed = inflate_consumed(data[p:])
+        p += consumed
+        want_crc, want_isize = struct.unpack_from("<II", data, p)
+        p += 8
+        if crc32(decoded) != want_crc:
+            raise ValueError("gzip: crc32 mismatch")
+        if (len(decoded) & 0xFFFFFFFF) != want_isize:
+            raise ValueError("gzip: length mismatch")
+        out += decoded
+        pos = p
+    return bytes(out)
+
+
+class InflateStream:
+    """Resumable inflate over the library's streaming context
+    (atpu_inflate_stream_*). Memory stays O(window): consumed input is
+    trimmed inside the context each run."""
+
+    _CHUNK = 256 * 1024
+
+    def __init__(self, raw: bool = False):
+        self._lib = get_lib()
+        self._ctx = self._lib.atpu_inflate_stream_new(1 if raw else 0)
+        if not self._ctx:
+            raise MemoryError("inflate stream alloc")
+        self.done = False
+
+    def __del__(self):
+        ctx, self._ctx = getattr(self, "_ctx", None), None
+        if ctx:
+            self._lib.atpu_inflate_stream_free(ctx)
+
+    def pending_input(self) -> int:
+        """Bytes of compressed input buffered."""
+        return int(self._lib.atpu_inflate_stream_pending(self._ctx))
+
+    def tail_bytes(self) -> int:
+        """Unconsumed whole input bytes (a byte the deflate stream ended in
+        the middle of is consumed), so framing layers can locate the
+        member trailer."""
+        return int(self._lib.atpu_inflate_stream_tail(self._ctx))
+
+    def decode(self, data: bytes, final: bool = False) -> bytes:
+        """Feed ``data`` and return whatever decodes now."""
+        if self._ctx is None:
+            raise ValueError("stream closed")
+        if data:
+            buf = _tobuf(data)
+            if self._lib.atpu_inflate_stream_feed(
+                    self._ctx, _as_u8p(buf), len(data)) < 0:
+                raise MemoryError("inflate stream feed")
+        out = []
+        dst = np.empty(self._CHUNK, dtype=np.uint8)
+        flag = _i32(0)
+        while True:
+            n = self._lib.atpu_inflate_stream_run(
+                self._ctx, _as_u8p(dst), dst.size, 1 if final else 0,
+                ctypes.byref(flag))
+            if n == -4:
+                raise ValueError("zlib: adler32 mismatch")
+            if n < 0:
+                raise ValueError("inflate: corrupt stream")
+            out.append(dst[:n].tobytes())
+            self.done = bool(flag.value)
+            # n == 0: no progress without more input (a run stops ~258 B
+            # short of dst.size, so a full chunk is not the test)
+            if self.done or n == 0:
+                break
+        return b"".join(out)
 
 
 def inflate_plan(chunk: bytes):
@@ -400,6 +656,56 @@ def bz2_emit(level: int, Ls: bytes, lens, orig_ptrs, crcs) -> bytes:
     if n < 0:
         raise ValueError("bz2 emit failed")
     return dst[:n].tobytes()
+
+
+class Bz2DecodeStream:
+    """Resumable bzip2 decode over the library's streaming context
+    (atpu_bz2_stream_*). Memory is O(block size): one block's BWT state
+    plus pending input; consumed input is trimmed inside the context."""
+
+    _CHUNK = 256 * 1024
+
+    def __init__(self):
+        self._lib = get_lib()
+        self._ctx = self._lib.atpu_bz2_stream_new()
+        if not self._ctx:
+            raise MemoryError("bz2 stream alloc")
+        self.done = False
+
+    def __del__(self):
+        ctx, self._ctx = getattr(self, "_ctx", None), None
+        if ctx:
+            self._lib.atpu_bz2_stream_free(ctx)
+
+    def pending_input(self) -> int:
+        """Bytes of compressed input buffered."""
+        return int(self._lib.atpu_bz2_stream_pending(self._ctx))
+
+    def decode(self, data: bytes, final: bool = False) -> bytes:
+        """Feed ``data`` and return whatever decodes now."""
+        if self._ctx is None:
+            raise ValueError("stream closed")
+        if data:
+            buf = _tobuf(data)
+            if self._lib.atpu_bz2_stream_feed(
+                    self._ctx, _as_u8p(buf), len(data)) < 0:
+                raise MemoryError("bz2 stream feed")
+        out = []
+        dst = np.empty(self._CHUNK, dtype=np.uint8)
+        flag = _i32(0)
+        while True:
+            n = self._lib.atpu_bz2_stream_run(
+                self._ctx, _as_u8p(dst), dst.size, 1 if final else 0,
+                ctypes.byref(flag))
+            if n == -4:
+                raise ValueError("bzip2: block CRC mismatch")
+            if n < 0:
+                raise ValueError("bzip2: corrupt stream")
+            out.append(dst[:n].tobytes())
+            self.done = bool(flag.value)
+            if self.done or n < dst.size:
+                break
+        return b"".join(out)
 
 
 # --- LZMA (csrc/lzma.cpp), FORMAT_ALONE --------------------------------------
@@ -588,6 +894,80 @@ def zstd_decompress(data: bytes, expected_size: Optional[int] = None,
         if n == -3:
             raise ValueError("zstd: bad dictionary")
         raise ValueError("zstd: corrupt stream")
+
+
+def zstd_decompress_frame(data: bytes):
+    """Decode ONE zstd frame from the head of `data`: (decoded bytes,
+    source bytes consumed), or None when `data` does not hold a whole
+    frame yet (a stream waits for more input). Raises on corruption. A
+    skippable frame decodes to b"" and is consumed."""
+    if len(data) < 8:
+        return None
+    lib = get_lib()
+    src = _tobuf(data)
+    fsz = lib.atpu_zstd_frame_compressed_size(_as_u8p(src), len(data))
+    if fsz == -5:  # incomplete frame
+        return None
+    if fsz < 0:
+        raise ValueError("zstd: corrupt frame")
+    probe = lib.atpu_zstd_frame_content_size(_as_u8p(src), len(data))
+    cap = max(64, int(probe) * 2 + 64) if probe > 0 else max(
+        64, 4 * int(fsz))
+    consumed = ctypes.c_size_t(0)
+    while True:
+        ref, dp = _alloc_out(cap)
+        n = lib.atpu_zstd_decompress_frame(
+            _as_u8p(src), int(fsz), dp, cap, None, 0, ctypes.byref(consumed))
+        if n >= 0:
+            if consumed.value == 0 or consumed.value > len(data):
+                return None
+            return _finish_out(ref, n), int(consumed.value)
+        if n == -2 and cap < (1 << 31):
+            cap *= 4
+            continue
+        raise ValueError("zstd: corrupt frame")
+
+
+def zstd_build_dict_header(lit_freq, dict_id: int, ll_freq=None,
+                           of_freq=None, ml_freq=None) -> bytes:
+    """A structured dictionary's entropy header: magic, dictID, the Huffman
+    table of the literal histogram, FSE tables from the code histograms
+    where given (else predefined) and the default repcodes; the trainer
+    appends the content after it."""
+    lib = get_lib()
+    freq = (ctypes.c_uint32 * 256)(*[int(x) for x in lit_freq])
+
+    def arr(x, n):
+        return (ctypes.c_uint32 * n)(*[int(v) for v in x]) if x is not None \
+            else None
+    cap = 1024
+    ref, dp = _alloc_out(cap)
+    n = lib.atpu_zstd_build_dict_header(
+        freq, dict_id & 0xFFFFFFFF, arr(ll_freq, 36), arr(of_freq, 32),
+        arr(ml_freq, 53), dp, cap)
+    if n < 0:
+        raise ValueError("zstd dict header build failed")
+    return _finish_out(ref, n)
+
+
+class ZstdStatsCapture:
+    """Histograms of the literals and sequence codes that zstd_compress
+    calls emit inside the `with` block (the dictionary trainer's statistics
+    pass). The capture is one process-wide slot in the library: not
+    thread-safe."""
+
+    def __enter__(self):
+        lib = get_lib()
+        self.lit = (ctypes.c_uint32 * 256)()
+        self.ll = (ctypes.c_uint32 * 36)()
+        self.of = (ctypes.c_uint32 * 32)()
+        self.ml = (ctypes.c_uint32 * 53)()
+        lib.atpu_zstd_set_stats(self.lit, self.ll, self.of, self.ml)
+        return self
+
+    def __exit__(self, *exc):
+        get_lib().atpu_zstd_set_stats(None, None, None, None)
+        return False
 
 
 # Columns of one block's plan row; must equal ops/zstd_decode_device's

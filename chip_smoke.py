@@ -83,11 +83,27 @@ non-zero before the last line:
      16-block stream's sha256 against the JAX package's, and stage times
      (the BWT on the card against bz2_prepare / bz2_emit on the host;
      _find_matches and _grid_parse at G = 1 against lzma_compress_cand);
- 12. one JSON line listing every ported kernel: compact_rows with its
-     launches summed over the paths of phases 4 and 6-10, the zstd scan
+ 12. the host surface on the card, on the same corpus: the LZ4 frame at
+     the device tier (compress_frame(max_tier=TIER_TORCH, device="cuda"):
+     one device call and one compact_rows per 64 KiB frame block; the
+     first 16 blocks with block checksums off and on, audited, launches
+     counted, round trips through decompress_frame and DecompressStream,
+     their sha256 against the JAX package's, MB/s best of 3; the
+     compaction at the frame path's shape (N = 1) against its plain
+     version; the whole corpus timed once beside the host-tier frame and
+     phase 4's RAP path), native_api.LZ4_compress_fast(data, 2) (equal to
+     setup("lz4", opt_var=2, enable_rap=False), decoded by
+     LZ4_decompress_safe, pinned), CompressStream / DecompressStream of
+     every stream codec (stdlib zlib, gzip and bz2 read theirs), .xz at 1
+     MiB blocks (stdlib lzma, random access to one block), a trained zstd
+     dictionary through the API, the bench CLI (-e lz4:0:2 on the card,
+     every JSON line verified; one -n run) and profiling.trace around one
+     device compress (the span and both compaction kernels in the trace);
+ 13. one JSON line listing every ported kernel: compact_rows with its
+     launches summed over the paths of phases 4, 6-10 and 12, the zstd scan
      kernels with theirs in phase 10, inflate_symbol_scan with its own in
      phase 9;
- 13. last line: {"ok": true, "device": {...}}.
+ 14. last line: {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -132,6 +148,19 @@ PINNED_SHA256 = {
         "7e275b024219289ffa89e6ff12d11c9ae7b2b3c5869f826d2d0aee0d17869afd",
     "lzma level 6":
         "7714dcaebebd8a3b1452d36f4e207835735cf71925f8bcdd5b343cc2249e5cde",
+}
+
+
+# The host surface's device-tier calls on the same first PINNED_BLOCKS
+# blocks (phase 12), against the JAX package's bytes at its device tier
+# (JAX on the CPU; tests/test_torch_pinned.py holds them):
+# lz4_frame.compress_frame(data, max_tier=<device tier>) and
+# native_api.LZ4_compress_fast(data, 2).
+PINNED_SURFACE_SHA256 = {
+    "lz4 frame":
+        "bd814dcf812ccb60a589928f9b48668e72f2d3c7dcc4f006d15fd2e2466c7a7a",
+    "LZ4_compress_fast":
+        "60f8e9401add97c3373f20e27da965c7202ec69d8730dad70d97c6858096dcda",
 }
 
 
@@ -570,6 +599,16 @@ def fmt_stages(stage):
     return ", ".join(f"{k} {min(v):.3f}" for k, v in stage.items())
 
 
+def reset_counts():
+    """Every kernel launch count (compact.launches, zstd_scan.launches,
+    inflate_scan.launches) to 0."""
+    from aocl_compression_tpu_torch.ops import compact, inflate_scan, zstd_scan
+    compact.launches = 0
+    for counts in (zstd_scan.launches, inflate_scan.launches):
+        for k in counts:
+            counts[k] = 0
+
+
 def run_path(label, fn, hits_want, calls=3, per_call=None):
     """fn() `calls` times with the audit on and every kernel count
     (compact.launches, zstd_scan.launches, inflate_scan.launches) set to 0
@@ -578,16 +617,13 @@ def run_path(label, fn, hits_want, calls=3, per_call=None):
     inflate_scan.launches for the caller to read. Fails unless every audit
     name in hits_want was hit `calls` times (times per_call[name] where
     given)."""
-    from aocl_compression_tpu_torch.ops import compact, inflate_scan, zstd_scan
+    from aocl_compression_tpu_torch.ops import compact
     from aocl_compression_tpu_torch.utils import dispatch
     fn()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.enable_audit(True)
-    compact.launches = 0
-    for counts in (zstd_scan.launches, inflate_scan.launches):
-        for k in counts:
-            counts[k] = 0
+    reset_counts()
     try:
         res, t = best_s(fn, calls)
         launches = compact.launches
@@ -1522,6 +1558,282 @@ def phase_zstd(data: bytes, blocks, dev):
     return launches + dlaunches, stats
 
 
+def counted(label, fn, hits_want):
+    """One fn() call with the audit on and every kernel count set to 0 just
+    before: (result, s, compact_rows launches, audit hits). Fails unless
+    every audit name in hits_want ({name: hits}) was hit that often."""
+    from aocl_compression_tpu_torch.ops import compact
+    from aocl_compression_tpu_torch.utils import dispatch
+    torch.cuda.synchronize()
+    dispatch.enable_audit(True)
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        launches = compact.launches
+        hits = dispatch.audit_hits()
+    finally:
+        dispatch.enable_audit(False)
+    print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
+          f"compact_rows launches: {launches}")
+    for name, want in hits_want.items():
+        if hits.get(name) != want:
+            raise AssertionError(f"{label}: {name} was hit "
+                                 f"{hits.get(name)} times, not {want}")
+    return res, t, launches, hits
+
+
+def check_surface_pin(label, stream):
+    """A host-surface call's bytes on the first PINNED_BLOCKS blocks against
+    the JAX package's sha256 (PINNED_SURFACE_SHA256)."""
+    digest = hashlib.sha256(stream).hexdigest()
+    if digest != PINNED_SURFACE_SHA256[label]:
+        raise AssertionError(f"{label}: the {PINNED_BLOCKS}-block output's "
+                             f"sha256 {digest} is not the JAX package's "
+                             f"{PINNED_SURFACE_SHA256[label]}")
+    print(f"[surface] {label}, first {PINNED_BLOCKS} blocks: {len(stream)} "
+          f"B, sha256 {digest} = the JAX package's")
+
+
+def pieces(data: bytes, seed: int, most: int):
+    """data cut into seeded random sizes in [1, most]."""
+    rng = np.random.default_rng(seed)
+    out, pos = [], 0
+    while pos < len(data):
+        k = int(rng.integers(1, most + 1))
+        out.append(data[pos:pos + k])
+        pos += k
+    return out
+
+
+def trace_names(fn, tries: int = 5):
+    """The event names of the Chrome trace profiling.trace writes around
+    fn(), and the windows lost. A window that holds no device event at all
+    is profiled again (up to `tries`), as in device_ops."""
+    import glob
+    import os
+    import tempfile
+
+    from aocl_compression_tpu_torch.utils import profiling
+    for lost in range(tries):
+        with tempfile.TemporaryDirectory() as td:
+            with profiling.trace(td):
+                fn()
+            (path,) = glob.glob(os.path.join(td, "*.json"))
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        if any(e.get("cat") == "kernel" for e in events):
+            return {e.get("name", "") for e in events}, lost
+    raise AssertionError(f"the profiler's trace held no device event in "
+                         f"{tries} windows")
+
+
+def phase_surface(data: bytes, dev):
+    """The host surface on the card: the LZ4 frame at the device tier,
+    native_api.LZ4_compress_fast(acceleration 2), every stream codec, .xz,
+    dictionaries, the bench CLI and a profiler trace. Returns
+    {path: compact_rows launches}."""
+    import bz2
+    import contextlib
+    import gzip
+    import io
+    import lzma
+    import os
+    import tempfile
+    import zlib
+
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch import native_api
+    from aocl_compression_tpu_torch.codecs import lz4_frame, xz, zstd
+    from aocl_compression_tpu_torch.ops import compact
+    from aocl_compression_tpu_torch.tools import bench_cli
+    from aocl_compression_tpu_torch.utils import profiling
+    from aocl_compression_tpu_torch.utils.config import TIER_TORCH
+
+    mb = len(data) / 1e6
+    pin = data[:PINNED_BLOCKS * B]
+    nblk = -(-len(data) // B)
+    paths = {}
+
+    def frame(d, **kw):
+        return lz4_frame.compress_frame(d, max_tier=TIER_TORCH, device=dev,
+                                        **kw)
+
+    # the frame at the device tier: one device call (one compact_rows) per
+    # 64 KiB frame block. The pinned blocks' frame, with block checksums on
+    # and off, round trips through decompress_frame and DecompressStream
+    # and holds the JAX package's bytes; best of 3 there.
+    for bchk in (False, True):
+        f, f_s, launches, _ = counted(
+            f"surface frame, {PINNED_BLOCKS} blocks, block_checksum={bchk}",
+            lambda: frame(pin, block_checksum=bchk),
+            {"lz4_compress_torch": 1, "fetch_chunks_kernel": PINNED_BLOCKS})
+        if launches != 2 * PINNED_BLOCKS:
+            raise AssertionError("frame: compact_rows did not launch its two "
+                                 "kernels once per frame block")
+        ds = act.DecompressStream("lz4")
+        back = b"".join(ds.write(p) for p in pieces(f, 1, 4096)) + ds.finish()
+        if lz4_frame.decompress_frame(f) != pin or back != pin:
+            raise AssertionError("frame: round trip failed")
+        if not bchk:
+            check_surface_pin("lz4 frame", f)
+    _, pin_s = best_s(lambda: frame(pin))
+    # one call's compaction inputs at the frame path's shape (N = 1)
+    seen = capture(compact, "compact_rows_kernel", lambda: frame(pin[:B]))
+    frame_err = check_compact(compact, "the frame path, one frame block",
+                              *seen[0])[1]
+
+    # the whole corpus once (256 device calls), beside the host-tier frame
+    # and the RAP lz4 path of phase 4
+    f, f_s, paths["lz4 frame (device tier)"], _ = counted(
+        "surface frame", lambda: frame(data),
+        {"lz4_compress_torch": 1, "fetch_chunks_kernel": nblk})
+    if paths["lz4 frame (device tier)"] != 2 * nblk:
+        raise AssertionError("frame: compact_rows did not launch its two "
+                             "kernels once per frame block")
+    if lz4_frame.decompress_frame(f) != data:
+        raise AssertionError("frame: the corpus's frame does not decode")
+    fh, fh_s = best_s(lambda: lz4_frame.compress_frame(data))
+    if lz4_frame.decompress_frame(fh) != data:
+        raise AssertionError("frame: the host-tier frame does not decode")
+    h = act.setup("lz4", opt_var=2, block_size=B)
+    rap, rap_s = best_s(lambda: act.compress(h, data))
+    print(f"[surface] lz4 frame at the device tier: {len(data)} B -> "
+          f"{len(f)} B, ratio {len(data) / len(f):.4f}, {mb / f_s:.2f} MB/s "
+          f"(one call, {f_s * 1e3:.2f} ms, {nblk} device calls); "
+          f"{PINNED_BLOCKS} blocks {PINNED_BLOCKS * B / 1e6 / pin_s:.2f} MB/s "
+          f"(best of 3); host-tier frame {len(fh)} B, ratio "
+          f"{len(data) / len(fh):.4f}, {mb / fh_s:.2f} MB/s (best of 3); "
+          f"RAP lz4 (phase 4's path) {len(rap)} B, {mb / rap_s:.2f} MB/s "
+          f"(best of 3)")
+
+    # LZ4_compress_fast(acceleration 2): the device encoder on one handle
+    def fast():
+        return native_api.LZ4_compress_fast(data, 2, device=dev)
+    fast()
+    c, c_s, paths["LZ4_compress_fast"], _ = counted(
+        "surface LZ4_compress_fast", fast, {"lz4_compress_torch": 1})
+    want = act.compress(act.setup("lz4", opt_var=2, enable_rap=False), data)
+    if c != want:
+        raise AssertionError("LZ4_compress_fast differs from setup('lz4', "
+                             "opt_var=2, enable_rap=False)")
+    if native_api.LZ4_decompress_safe(c, len(data), device=dev) != data:
+        raise AssertionError("LZ4_compress_fast: LZ4_decompress_safe failed")
+    check_surface_pin("LZ4_compress_fast",
+                      native_api.LZ4_compress_fast(pin, 2, device=dev))
+    print(f"[surface] LZ4_compress_fast(data, 2): {len(c)} B, ratio "
+          f"{len(data) / len(c):.4f}, {mb / c_s:.2f} MB/s (one call); equal "
+          f"to compress(setup('lz4', opt_var=2, enable_rap=False)); "
+          f"LZ4_decompress_safe exact")
+
+    # streams: seeded random-size writes, stock decoders where they exist,
+    # and DecompressStream fed in small pieces
+    stock = {"zlib": zlib.decompress, "gzip": gzip.decompress,
+             "bzip2": bz2.decompress,
+             "zstd": lambda s: native_api.ZSTD_decompress(s, device=dev),
+             "lz4": lz4_frame.decompress_frame}
+    writes = pieces(data, 2, 1 << 20)
+    for codec in ("zlib", "gzip", "zstd", "bzip2", "lz4"):
+        t0 = time.perf_counter()
+        cs = act.CompressStream(codec)
+        s = b"".join(cs.write(w) for w in writes) + cs.finish()
+        cs_s = time.perf_counter() - t0
+        if stock[codec](s) != data:
+            raise AssertionError(f"stream {codec}: the stock decoder failed")
+        t0 = time.perf_counter()
+        ds = act.DecompressStream(codec)
+        back = b"".join(ds.write(p) for p in pieces(s, 3, 65536)) \
+            + ds.finish()
+        ds_s = time.perf_counter() - t0
+        if back != data:
+            raise AssertionError(f"stream {codec}: DecompressStream failed")
+        print(f"[surface] stream {codec}: {len(s)} B, ratio "
+              f"{len(data) / len(s):.4f}; CompressStream {mb / cs_s:.2f} "
+              f"MB/s, DecompressStream {mb / ds_s:.2f} MB/s (one pass each); "
+              f"{'stdlib' if codec in ('zlib', 'gzip', 'bzip2') else 'port'} "
+              f"decoder exact")
+
+    # .xz: 1 MiB blocks, read by stdlib lzma, one block by random access
+    t0 = time.perf_counter()
+    x = xz.xz_compress(data, 6, block_size=1 << 20)
+    x_s = time.perf_counter() - t0
+    if lzma.decompress(x) != data:
+        raise AssertionError(".xz: stdlib lzma rejected the stream")
+    idx = xz.xz_index(x)
+    k = len(idx) // 2
+    off, _, usize = idx[k]
+    if xz.xz_decompress_block(x, off) != data[k << 20:(k << 20) + usize]:
+        raise AssertionError(".xz: random access to one block failed")
+    print(f"[surface] xz_compress(level 6, 1 MiB blocks): {len(x)} B, ratio "
+          f"{len(data) / len(x):.4f}, {mb / x_s:.2f} MB/s (one call); "
+          f"stdlib lzma exact; {len(idx)} blocks in the index, block {k} by "
+          f"random access exact")
+
+    # dictionaries: trained on slices, then zstd with the dictionary
+    samples = [data[i:i + 4096] for i in range(0, 8 << 20, 1 << 15)]
+    d = zstd.train_dictionary(samples, 16384)
+    hd = act.setup("zstd", dictionary=d, block_size=16384)
+    part = data[:4 << 20]
+    cd = act.compress(hd, part)
+    if act.decompress(hd, cd) != part:
+        raise AssertionError("zstd with a trained dictionary: round trip "
+                             "failed")
+    c0 = act.compress(act.setup("zstd", block_size=16384), part)
+    print(f"[surface] train_dictionary: {len(d)} B from {len(samples)} "
+          f"samples; zstd level 3, 16 KiB blocks, 4 MiB: {len(cd)} B with it, "
+          f"{len(c0)} B without; round trip exact")
+
+    # the bench CLI on a file of the corpus: each JSON line verified
+    def cli(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench_cli.main(argv)
+        if rc:
+            raise AssertionError(f"bench CLI {argv} exited {rc}")
+        return out.getvalue().splitlines()
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "corpus.bin")
+        with open(path, "wb") as fh_:
+            fh_.write(data)
+        lines, _, paths["bench CLI -e lz4:0:2"], hits = counted(
+            "surface bench CLI", lambda: cli(
+                ["-e", "lz4:0:2", "-t", "-p", "--json", "--device", "cuda",
+                 path]), {})
+        lines += cli(["-n", "-e", "zstd", "-t", "-i", "3", "--json",
+                      "--device", "cuda", path])
+    # -i 10: ten compress calls, one device batch (one compact_rows) each
+    if "lz4_compress_blocks_torch" not in hits or \
+            paths["bench CLI -e lz4:0:2"] != 2 * 10:
+        raise AssertionError("bench CLI: -e lz4:0:2 did not run the device "
+                             "tier once per compress call")
+    for line in lines:
+        if json.loads(line).get("verify") != "OK":
+            raise AssertionError(f"bench CLI: {line}")
+        print(f"[surface] bench CLI: {line}")
+
+    # a profiler trace around one device compress: the span and both
+    # compaction kernels by name
+    def profiled():
+        with profiling.annotate("atpu-lz4-compress"):
+            act.compress(h, pin)
+    (names, lost), _, paths["profiled compress"], _ = counted(
+        "surface profiler", lambda: trace_names(profiled), {})
+    if paths["profiled compress"] != 2 * (lost + 1):
+        raise AssertionError("profiled compress: compact_rows did not launch "
+                             "its two kernels once per window")
+    for want in ("atpu-lz4-compress", "compact_layout_kernel",
+                 "compact_copy_bulk_kernel"):
+        if not any(want in n for n in names):
+            raise AssertionError(f"the profiler's trace holds no {want}")
+    print(f"[surface] profiling.trace: the Chrome trace holds the span and "
+          f"both compact_rows kernels ({lost} windows with no device event "
+          f"profiled again)")
+    return paths, frame_err
+
+
 def rap_zstd(frames, blocks):
     """The RAP stream the zstd codec writes: the RAP frame inside a
     skippable frame, then the frames."""
@@ -1597,6 +1909,9 @@ def main():
     paths["zstd level 1 encode + device decode"], scans = phase_zstd(
         data, blocks, dev)
     phase_bzip2_lzma(data, dev)
+    surface, frame_err = phase_surface(data, dev)
+    paths.update(surface)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], frame_err)
     print("[paths] compact_rows launches: " + ", ".join(
         f"{k} {v}" for k, v in paths.items()))
 

@@ -57,6 +57,44 @@ for method in ("bzip2", "lzma"):
     assert act.decompress(h, c) == data
     assert (bz2.decompress(c) if method == "bzip2"
             else lzma.decompress(c, format=lzma.FORMAT_ALONE)) == data
+# the host surface and tools, each driven once on the CPU
+import contextlib
+import io
+import tempfile
+from aocl_compression_tpu_torch import bench, native_api, streaming  # noqa
+from aocl_compression_tpu_torch.codecs import lz4_frame, xz
+from aocl_compression_tpu_torch.tools import bench_cli
+from aocl_compression_tpu_torch.utils import profiling
+from aocl_compression_tpu_torch.utils.config import TIER_TORCH
+f = lz4_frame.compress_frame(data, max_tier=TIER_TORCH, device="cpu")
+assert lz4_frame.decompress_frame(f) == data
+for codec in ("zlib", "gzip", "zstd", "bzip2", "lz4"):
+    cs = streaming.CompressStream(codec)
+    s = cs.write(data) + cs.finish()
+    ds = act.DecompressStream(codec)
+    assert ds.write(s) + ds.finish() == data
+assert lzma.decompress(xz.xz_compress(data, 1)) == data
+c = native_api.LZ4_compress_fast(data, 2, device="cpu")
+assert native_api.LZ4_decompress_safe(c, len(data), device="cpu") == data
+import numpy as np
+words = [b"hash ", b"match ", b"the ", b"block ", b"stream "]
+text = b"".join(words[i] for i in np.random.default_rng(0).integers(0, 5,
+                                                                    5000))
+d = zstd.train_dictionary([text[i:i + 500] for i in range(0, 15000, 250)],
+                          2048)
+part = text[15000:20000]
+assert native_api.ZSTD_decompress_usingDict(native_api.ZSTD_compress_usingDict(
+    part, d, device="cpu"), d, len(part), device="cpu") == part
+with tempfile.TemporaryDirectory() as td:
+    with profiling.trace(td), profiling.annotate("span"):
+        native_api.LZ4_compress_default(data, device="cpu")
+    path = td + "/sample.bin"
+    with open(path, "wb") as fh:
+        fh.write(data)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert bench.main(["-e", "lz4:0:2", "-t", "-i", "1", "--device",
+                           "cpu", path]) == 0
+assert bench.main is bench_cli.main
 assert not any(m == "jax" or m.startswith("aocl_compression_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

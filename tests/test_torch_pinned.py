@@ -10,6 +10,14 @@ the same bytes. After a change that alters those bytes on purpose, the
 assertion message carries the new digest:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_pinned.py -q
+
+PINNED_SURFACE_SHA256 holds the host surface's device-tier calls on the
+same blocks (chip_smoke.py phase 12): the LZ4 frame at the device tier and
+LZ4_compress_fast(acceleration 2). Their test checks the JAX package's
+digest only: the port's bytes on these calls are held to the JAX
+package's on the CPU by tests/test_torch_host_surface.py (at 4 KiB
+blocks, to keep the plain encoder's CPU time small) and to this digest on
+the card.
 """
 
 import functools
@@ -21,6 +29,9 @@ import pytest
 
 import aocl_compression_tpu as actpu
 import aocl_compression_tpu_torch as act
+from aocl_compression_tpu import native_api
+from aocl_compression_tpu.codecs import lz4_frame
+from aocl_compression_tpu.utils.config import TIER_XLA
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,3 +63,19 @@ def test_pinned_stream_is_the_jax_packages(monkeypatch, label):
         f"{digest}")
     assert act.compress(act.setup(method, device="cpu", **kw),
                         _data()) == ref
+
+
+SURFACE_CALLS = {
+    "lz4 frame": lambda d: lz4_frame.compress_frame(d, max_tier=TIER_XLA),
+    "LZ4_compress_fast": lambda d: native_api.LZ4_compress_fast(d, 2),
+}
+
+
+@pytest.mark.parametrize("label", list(SMOKE.PINNED_SURFACE_SHA256))
+def test_pinned_surface_is_the_jax_packages(monkeypatch, label):
+    monkeypatch.setenv("AOCL_ENABLE_INSTRUCTIONS", "XLA")
+    ref = SURFACE_CALLS[label](_data())
+    digest = hashlib.sha256(ref).hexdigest()
+    assert digest == SMOKE.PINNED_SURFACE_SHA256[label], (
+        f"{label}: the JAX package's output is {len(ref)} B, sha256 "
+        f"{digest}")
