@@ -7,7 +7,10 @@ that were Pallas kernels are hand-written CUDA kernels
 lz4 and lz4hc (device encode and decode), snappy (device encode and
 decode), zlib (device encode at levels 1 and 2, device inflate), zstd
 (device encode at level 1, device decode), bzip2 (device block sort) and
-lzma (device match-finder assist), each beside its host tier.
+lzma (device match-finder assist), each beside its host tier. The
+multi-device tier (parallel/sharded.py, parallel/distributed.py) shards
+the lz4, snappy, zlib and zstd encoders and the lz4 decoder over several
+devices: setup(..., num_shards=n).
 
 Quick start:
 

@@ -3,8 +3,10 @@
 Reference struct: api/aocl_compression.h:125-152. Field map:
 
   level, optVar        -> level, opt_var
-  numThreads           -> num_shards (host-tier worker count)
-  numMPIranks          -> num_hosts  (reserved)
+  numThreads           -> num_shards (host tier: worker count; device
+                          tiers: MULTI shards per host, 0 = auto, one a
+                          device)
+  numMPIranks          -> num_hosts  (MULTI: shards = num_shards x hosts)
   memLimit             -> mem_limit  (input bytes per device batch)
   measureStats + c/dSize c/dTime c/dSpeed -> measure_stats + Stats
   optOff, optLevel     -> opt_off, max_tier (backend-tier cap, see
@@ -39,7 +41,7 @@ class Handle:
     codec: str = ""
     level: int = 0
     opt_var: int = 0
-    num_shards: int = 0          # host-tier workers; 0 = auto
+    num_shards: int = 0          # workers / MULTI shards; 0 = auto
     num_hosts: int = 0           # reference numMPIranks (reserved there)
     mem_limit: int = 0
     measure_stats: bool = False

@@ -4,6 +4,8 @@ Tiers:
   HOST  — own C++ implementation (csrc/lz4_host.cpp) via ctypes.
   TORCH — the device encoder and decoder (ops/lz4_device.py) on the
           handle's device, compacted by the CUDA kernel in ops/compact.py.
+  MULTI — the same encoder and decoder over several devices
+          (parallel/sharded.py), handle.num_shards shards (0: one a card).
 RAP decode runs on the host C++ decoder unless device decode is enabled
 (utils.config.device_decode_enabled), the JAX package's default route.
 
@@ -26,8 +28,8 @@ from ..api.handle import Handle
 from ..parallel import container
 from ..runtime import native
 from ..utils import dispatch
-from ..utils.config import (TIER_HOST, TIER_TORCH, device_decode_enabled,
-                            get_config)
+from ..utils.config import (TIER_HOST, TIER_MULTI, TIER_TORCH,
+                            device_decode_enabled, get_config)
 from . import lz4_stitch
 from .base import Codec
 
@@ -58,8 +60,8 @@ class Lz4Codec(Codec):
         accel = max(1, handle.opt_var)
         # the device pipeline is the throughput mode (tile-anchor parse);
         # accel<=1 keeps the serial-greedy ratio semantics on the host tier.
-        # num_shards > 1 requests the multi-device tier, which the TORCH
-        # tier serves until MULTI is ported
+        # num_shards > 1 requests the multi-device tier (reference: MT
+        # behind the same entry points, threads/threads.c:46)
         cap = (handle.max_tier if accel >= 2 or handle.num_shards > 1
                else TIER_HOST)
         cb, ctier = dispatch.resolve_with_tier(
@@ -69,6 +71,11 @@ class Lz4Codec(Codec):
             # lz4.c:2655-2930); num_shards is the numThreads analog
             def compress(blocks):
                 return cb(blocks, accel, workers=handle.num_shards or None)
+        elif ctier == TIER_MULTI:
+            def compress(blocks):
+                return cb(blocks, accel, handle.device,
+                          num_shards=multi_shards(handle),
+                          mem_limit=handle.mem_limit or None)
         else:
             # mem_limit caps the input bytes per device batch; batching
             # happens BELOW the stitcher, so the stream layout is unchanged
@@ -102,8 +109,15 @@ class Lz4Codec(Codec):
         return _oneshot_decompress(data, expected_size)
 
 
+def multi_shards(handle: Handle) -> Optional[int]:
+    """The shard count a MULTI tier takes from the handle, as the JAX
+    package's mesh tier takes it: num_shards per host times the hosts;
+    None = one shard a device."""
+    return handle.num_shards * max(1, handle.num_hosts) or None
+
+
 def decompress_blocks_fn(handle: Handle, block_size: int):
-    """RAP chunk decoder for lz4 and lz4hc streams: the device tier on the
+    """RAP chunk decoder for lz4 and lz4hc streams: the device tiers on the
     handle's device when device decode is enabled, else the host tier."""
     cap = handle.max_tier if device_decode_enabled() else TIER_HOST
     db, tier = dispatch.resolve_with_tier("lz4", "decompress_blocks", cap,
@@ -111,6 +125,10 @@ def decompress_blocks_fn(handle: Handle, block_size: int):
     if tier == TIER_HOST:
         return lambda chunks, dlens: db(chunks, dlens, block_size,
                                         workers=handle.num_shards or None)
+    if tier == TIER_MULTI:
+        return lambda chunks, dlens: db(chunks, dlens, block_size,
+                                        handle.device,
+                                        num_shards=multi_shards(handle))
     return lambda chunks, dlens: db(chunks, dlens, block_size, handle.device)
 
 
@@ -175,14 +193,22 @@ def _device_bodies(blocks: Sequence[bytes], accel: int, device,
     for g in container.block_groups(blocks, mem_limit):
         bo, ta, flagged = lz4_device.encode_blocks(g, accel, device=device,
                                                    **params)
-        for i in flagged:
-            stream, t = dispatch.resolve_host("lz4", "compress_tail")(
-                g[i], max(accel, 1))
-            bo[i] = stream[:len(stream) - lz4_stitch.final_sequence_len(t)]
-            ta[i] = t
+        reencode_flagged(g, bo, ta, flagged, accel)
         bodies.extend(bo)
         tails.extend(ta)
     return bodies, tails
+
+
+def reencode_flagged(blocks: Sequence[bytes], bodies: list, tails: list,
+                     flagged: Sequence[int], accel: int) -> None:
+    """Replace, in place, the body and tail of each block the sort-emit
+    encoder flagged with the host tier's, under the stitcher's contract (a
+    body excludes the final literal-only sequence)."""
+    for i in flagged:
+        stream, t = dispatch.resolve_host("lz4", "compress_tail")(
+            blocks[i], max(accel, 1))
+        bodies[i] = stream[:len(stream) - lz4_stitch.final_sequence_len(t)]
+        tails[i] = t
 
 
 @dispatch.register("lz4", "compress_blocks", TIER_TORCH,
@@ -215,11 +241,22 @@ def _compress_torch(data: bytes, accel: int, device) -> bytes:
                    "lz4_decompress_blocks_torch")
 def _decompress_blocks_torch(chunks: Sequence[bytes], dlens: Sequence[int],
                              block_size: int, device) -> List[bytes]:
-    """Device decode of RAP chunks. A chunk decoding to more than 64 KiB
-    (a stitched chunk carries its predecessor's tail literals) is past the
-    JAX package's 16-bit packing limit, kept here as the format route: it
-    goes to the host tier. The JAX package's tier sends the whole batch
-    there, this one only such chunks, with the same bytes out."""
+    """Device decode of RAP chunks (see _device_or_host for the chunks
+    decoding to more than 64 KiB)."""
+    from ..ops import lz4_device
+    return _device_or_host(chunks, dlens, block_size,
+                           lambda c, d: lz4_device.decode_blocks(
+                               c, d, block_size, device=device))
+
+
+def _device_or_host(chunks: Sequence[bytes], dlens: Sequence[int],
+                    block_size: int, decode) -> List[bytes]:
+    """decode(chunks, dlens) of the chunks that decode to <= 64 KiB, the
+    host tier for the others. A chunk decoding to more than 64 KiB (a
+    stitched chunk carries its predecessor's tail literals) is past the
+    JAX package's 16-bit packing limit, kept here as the format route. The
+    JAX package's device tiers send the whole batch to the host then, the
+    port's only such chunks, with the same bytes out."""
     from ..ops import lz4_device
     on_dev = [d <= lz4_device.MAX_DEVICE_BLOCK for d in dlens]
     out = [None] * len(chunks)
@@ -228,10 +265,45 @@ def _decompress_blocks_torch(chunks: Sequence[bytes], dlens: Sequence[int],
         if not idx:
             continue
         sub_c, sub_d = [chunks[i] for i in idx], [dlens[i] for i in idx]
-        res = (lz4_device.decode_blocks(sub_c, sub_d, block_size,
-                                        device=device) if route
+        res = (decode(sub_c, sub_d) if route
                else dispatch.resolve_host("lz4", "decompress_blocks")(
                    sub_c, sub_d, block_size))
         for i, r in zip(idx, res):
             out[i] = r
     return out
+
+
+# --- multi-device variants (parallel/sharded.py) ------------------------------
+
+@dispatch.register("lz4", "compress_blocks", TIER_MULTI,
+                   "lz4_compress_blocks_multi")
+def _compress_blocks_multi(blocks: Sequence[bytes], accel: int, device,
+                           num_shards=None, mem_limit=None, devices=None):
+    """The encoder sharded over devices (`devices`: an explicit shard
+    list, as sharded.make_mesh takes it); mem_limit splits the batch into
+    groups before sharding, as the JAX package's mesh tier does."""
+    from ..ops import lz4_device
+    from ..parallel import sharded
+    if max(len(b) for b in blocks) > lz4_device.MAX_DEVICE_BLOCK:
+        return dispatch.resolve_host("lz4", "compress_blocks")(blocks, accel)
+    bodies, tails = [], []
+    for g in container.block_groups(blocks, mem_limit):
+        bo, ta = sharded.compress_blocks_multi(g, accel, num_shards,
+                                               device=device, devices=devices)
+        bodies.extend(bo)
+        tails.extend(ta)
+    return lz4_stitch.stitch_bodies(bodies, tails, blocks)
+
+
+@dispatch.register("lz4", "decompress_blocks", TIER_MULTI,
+                   "lz4_decompress_blocks_multi")
+def _decompress_blocks_multi(chunks: Sequence[bytes], dlens: Sequence[int],
+                             block_size: int, device, num_shards=None,
+                             devices=None) -> List[bytes]:
+    """The decoder sharded over devices (see _device_or_host for the
+    chunks decoding to more than 64 KiB)."""
+    from ..parallel import sharded
+    return _device_or_host(chunks, dlens, block_size,
+                           lambda c, d: sharded.decompress_blocks_multi(
+                               c, d, block_size, num_shards, device=device,
+                               devices=devices))

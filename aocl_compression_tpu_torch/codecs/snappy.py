@@ -4,6 +4,7 @@ Tiers:
   HOST  — own C++ snappy (csrc/snappy_host.cpp) via ctypes.
   TORCH — the device encoder and decoder (ops/snappy_device.py) on the
           handle's device, compacted by the CUDA kernel in ops/compact.py.
+  MULTI — the device encoder over several devices (parallel/sharded.py).
 
 RAP layout, as the reference's: the stream keeps one varint length
 preamble, placed right after the RAP frame; chunks are raw element
@@ -28,9 +29,10 @@ from ..ops.compact import _no_mark
 from ..parallel import container
 from ..runtime import native
 from ..utils import dispatch
-from ..utils.config import (TIER_HOST, TIER_TORCH, device_decode_enabled,
-                            get_config)
+from ..utils.config import (TIER_HOST, TIER_MULTI, TIER_TORCH,
+                            device_decode_enabled, get_config)
 from .base import Codec
+from .lz4 import multi_shards
 
 
 def _varint(n: int) -> bytes:
@@ -77,6 +79,11 @@ class SnappyCodec(Codec):
         if ctier == TIER_HOST:
             def compress(blocks):
                 return cb(blocks, accel, workers=handle.num_shards or None)
+        elif ctier == TIER_MULTI:
+            def compress(blocks):
+                return cb(blocks, accel, handle.device,
+                          num_shards=multi_shards(handle),
+                          mem_limit=handle.mem_limit or None)
         else:
             # mem_limit caps the input bytes per device batch
             def compress(blocks):
@@ -159,16 +166,17 @@ def _decompress_blocks_host(chunks: Sequence[bytes], dlens: Sequence[int],
 # --- device-tier variants (ops/snappy_device.py) ------------------------------
 
 def _device_frags(blocks: Sequence[bytes], accel: int, device,
-                  mem_limit=None, mark=_no_mark) -> List[bytes]:
+                  mem_limit=None, mark=_no_mark, bucket=None) -> List[bytes]:
     """Fragments of `blocks` from the device encoder on `device`, one batch
     per group of <= mem_limit input bytes. Blocks the sort-emit encoder
     flags are re-encoded on the host tier (the JAX package's format route).
-    mark is the encoder's stage hook (ops/snappy_device.encode_blocks)."""
+    mark is the encoder's stage hook, bucket its batch bucket
+    (ops/snappy_device.encode_blocks)."""
     from ..ops import snappy_device
     frags = []
     for g in container.block_groups(blocks, mem_limit):
         fr, flagged = snappy_device.encode_blocks(g, accel, device=device,
-                                                  mark=mark)
+                                                  mark=mark, bucket=bucket)
         for i in flagged:
             fr[i] = _strip_preamble(
                 dispatch.resolve_host("snappy", "compress")(g[i]))
@@ -187,6 +195,26 @@ def _compress_blocks_torch(blocks: Sequence[bytes], accel: int, device,
                                                                   accel)
     return (_device_frags(blocks, accel, device, mem_limit),
             [len(b) for b in blocks])
+
+
+@dispatch.register("snappy", "compress_blocks", TIER_MULTI,
+                   "snappy_compress_blocks_multi")
+def _compress_blocks_multi(blocks: Sequence[bytes], accel: int, device,
+                           num_shards=None, mem_limit=None, devices=None):
+    """The device encoder sharded over devices (`devices`: an explicit
+    shard list), one sharded batch per group of <= mem_limit input
+    bytes."""
+    from ..ops import lz4_device
+    from ..parallel import sharded
+    if max(len(b) for b in blocks) > lz4_device.MAX_DEVICE_BLOCK:
+        return dispatch.resolve_host("snappy", "compress_blocks")(blocks,
+                                                                  accel)
+    frags = []
+    for g in container.block_groups(blocks, mem_limit):
+        frags.extend(sharded.sharded_block_call(
+            g, lambda p, d, B: _device_frags(p, accel, d, bucket=B),
+            num_shards, device=device, devices=devices))
+    return frags, [len(b) for b in blocks]
 
 
 @dispatch.register("snappy", "decompress_blocks", TIER_TORCH,

@@ -16,6 +16,7 @@ Tiers:
           stages on the host; and the lzma match-finder assist
           (ops/lzma_assist.py), whose elected sequences the host range
           coder encodes. bzip2 and lzma decode on the host.
+  MULTI — the deflate encoders over several devices (parallel/sharded.py).
 
 The device tiers are used on an explicit opt-in only (device_opt_in);
 otherwise dispatch routes by measured speed (utils.calibration), whose
@@ -44,9 +45,10 @@ from ..ops.deflate_device import FINAL_BLOCK, ZLIB_HEADER
 from ..parallel import container
 from ..runtime import native
 from ..utils import dispatch
-from ..utils.config import (TIER_HOST, TIER_TORCH, device_decode_enabled,
-                            get_config)
+from ..utils.config import (TIER_HOST, TIER_MULTI, TIER_TORCH,
+                            device_decode_enabled, get_config)
 from .base import Codec, device_opt_in
+from .lz4 import multi_shards
 
 
 def _trailer(data: bytes) -> bytes:
@@ -98,6 +100,11 @@ class ZlibCodec(Codec):
         if ctier == TIER_HOST:
             def compress(blocks):
                 return cb(blocks, level, workers=handle.num_shards or None)
+        elif ctier == TIER_MULTI:
+            def compress(blocks):
+                return cb(blocks, level, handle.device,
+                          num_shards=multi_shards(handle),
+                          mem_limit=handle.mem_limit or None)
         else:
             # mem_limit caps the input bytes per device batch
             def compress(blocks):
@@ -208,22 +215,23 @@ def _compress_static_torch(block: bytes, device) -> bytes:
 
 
 def _device_chunks(blocks: Sequence[bytes], level: int, device,
-                   mem_limit=None, mark=_no_mark) -> List[bytes]:
+                   mem_limit=None, mark=_no_mark, bucket=None) -> List[bytes]:
     """Sync-flushed chunks of `blocks` from the device encoder of `level`
     (1 static, >= 2 dynamic) on `device`, one batch per group of <=
-    mem_limit input bytes. mark is the encoder's stage hook."""
+    mem_limit input bytes. mark is the encoder's stage hook, bucket its
+    batch bucket."""
     from ..ops import deflate_device
     chunks = []
     for g in container.block_groups(blocks, mem_limit):
         if level >= 2:
             ch, failed = deflate_device.encode_blocks_dyn(
-                g, accel=2, device=device, mark=mark)
+                g, accel=2, device=device, mark=mark, bucket=bucket)
             for i in failed:
                 ch[i] = dispatch.resolve("zlib", "compress_static",
                                          TIER_TORCH)(g[i], device)
         else:
             ch = deflate_device.encode_blocks(g, accel=2, device=device,
-                                              mark=mark)
+                                              mark=mark, bucket=bucket)
         chunks.extend(ch)
     return chunks
 
@@ -237,6 +245,25 @@ def _zlib_compress_blocks_torch(blocks, level: int, device, mem_limit=None):
         return dispatch.resolve_host("zlib", "compress_blocks")(blocks, level)
     return (_device_chunks(blocks, level, device, mem_limit),
             [len(b) for b in blocks])
+
+
+@dispatch.register("zlib", "compress_blocks", TIER_MULTI,
+                   "zlib_compress_blocks_multi")
+def _zlib_compress_blocks_multi(blocks, level: int, device, num_shards=None,
+                                mem_limit=None, devices=None):
+    """The deflate encoder of `level` sharded over devices (`devices`: an
+    explicit shard list), one sharded batch per group of <= mem_limit input
+    bytes."""
+    from ..ops import lz4_device
+    from ..parallel import sharded
+    if max(len(b) for b in blocks) > lz4_device.MAX_DEVICE_BLOCK:
+        return dispatch.resolve_host("zlib", "compress_blocks")(blocks, level)
+    chunks = []
+    for g in container.block_groups(blocks, mem_limit):
+        chunks.extend(sharded.sharded_block_call(
+            g, lambda p, d, B: _device_chunks(p, level, d, bucket=B),
+            num_shards, device=device, devices=devices))
+    return chunks, [len(b) for b in blocks]
 
 
 @dispatch.register("zlib", "compress", TIER_TORCH, "zlib_compress_torch")

@@ -8,6 +8,7 @@ Tiers:
           device decoder (ops/zstd_decode_device.py), on the handle's
           device; their serial scans are the hand kernels of
           csrc/zstd_scan.cu and the fetches the compaction kernel.
+  MULTI — the level-1 encoder over several devices (parallel/sharded.py).
 
 RAP layout, as the reference's: the RAP frame rides inside a standard zstd
 skippable frame (magic 0x184D2A50), so stock zstd tools still decode the
@@ -21,8 +22,7 @@ package. RAP decode runs on the host unless device decode is enabled
 (utils.config.device_decode_enabled). The device tiers' host routes are
 the JAX package's, each taken through the dispatch registry so the audit
 names it: blocks over 64 KiB, single-shot inputs under 1 KiB, frames the
-device decoder does not take, and any dictionary. The port has no
-multi-device tier, so num_shards > 1 runs the TORCH tier.
+device decoder does not take, and any dictionary.
 """
 
 from __future__ import annotations
@@ -35,9 +35,10 @@ from ..ops.compact import _no_mark
 from ..parallel import container
 from ..runtime import native
 from ..utils import dispatch
-from ..utils.config import (TIER_HOST, TIER_TORCH, device_decode_enabled,
-                            get_config)
+from ..utils.config import (TIER_HOST, TIER_MULTI, TIER_TORCH,
+                            device_decode_enabled, get_config)
 from .base import Codec, device_opt_in
+from .lz4 import multi_shards
 
 _SKIPPABLE_MAGIC = 0x184D2A50
 _SKIPPABLE_HEADER_SIZE = 8
@@ -60,7 +61,10 @@ class ZstdCodec(Codec):
 
     def _tier_cap(self, handle: Handle, level: int):
         # the device pipeline is the level-1 strategy; quality levels and
-        # dictionary compression keep the host tier
+        # dictionary compression keep the host tier. At level 1 without a
+        # dictionary the cap is the handle's, so num_shards > 1 reaches
+        # the multi-device tier (reference: zstd MT inside
+        # ZSTD_compress_advanced, zstd_compress.c:5417)
         if level > 1 or handle.dictionary is not None:
             return TIER_HOST
         return handle.max_tier
@@ -72,6 +76,11 @@ class ZstdCodec(Codec):
         if tier == TIER_HOST:
             return lambda blocks, lvl, d: cb(
                 blocks, lvl, d, workers=handle.num_shards or None)
+        if tier == TIER_MULTI:
+            return lambda blocks, lvl, d: cb(
+                blocks, lvl, d, handle.device,
+                num_shards=multi_shards(handle),
+                mem_limit=handle.mem_limit or None)
         # mem_limit caps the input bytes per device batch
         return lambda blocks, lvl, d: cb(blocks, lvl, d, handle.device,
                                          mem_limit=handle.mem_limit or None)
@@ -243,15 +252,15 @@ def _host_decode(frame: bytes) -> bytes:
 
 
 def _device_frames(blocks: Sequence[bytes], level: int, device,
-                   mem_limit=None, mark=_no_mark) -> List[bytes]:
+                   mem_limit=None, mark=_no_mark, bucket=None) -> List[bytes]:
     """Frames of `blocks` from the device encoder on `device`, one batch
     per group of <= mem_limit input bytes. mark is the encoder's stage
-    hook (ops/zstd_device.encode_blocks)."""
+    hook, bucket its batch bucket (ops/zstd_device.encode_blocks)."""
     from ..ops import zstd_device
     frames = []
     for g in container.block_groups(blocks, mem_limit):
         frames.extend(zstd_device.encode_blocks(g, level, device=device,
-                                                mark=mark)[0])
+                                                mark=mark, bucket=bucket)[0])
     return frames
 
 
@@ -266,6 +275,28 @@ def _compress_blocks_torch(blocks: Sequence[bytes], level: int,
             blocks, level, dictionary)
     return (_device_frames(blocks, level, device, mem_limit),
             [len(b) for b in blocks])
+
+
+@dispatch.register("zstd", "compress_blocks", TIER_MULTI,
+                   "zstd_compress_blocks_multi")
+def _compress_blocks_multi(blocks: Sequence[bytes], level: int,
+                           dictionary=None, device=None, num_shards=None,
+                           mem_limit=None, devices=None):
+    """The device encoder sharded over devices (`devices`: an explicit
+    shard list), one sharded batch per group of <= mem_limit input bytes;
+    a dictionary takes the host tier."""
+    from ..ops import lz4_device
+    from ..parallel import sharded
+    if (max(len(b) for b in blocks) > lz4_device.MAX_DEVICE_BLOCK
+            or dictionary is not None):
+        return dispatch.resolve_host("zstd", "compress_blocks")(
+            blocks, level, dictionary)
+    frames = []
+    for g in container.block_groups(blocks, mem_limit):
+        frames.extend(sharded.sharded_block_call(
+            g, lambda p, d, B: _device_frames(p, level, d, bucket=B),
+            num_shards, device=device, devices=devices))
+    return frames, [len(b) for b in blocks]
 
 
 @dispatch.register("zstd", "compress", TIER_TORCH, "zstd_compress_torch")

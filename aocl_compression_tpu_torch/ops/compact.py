@@ -45,7 +45,8 @@ _lib = None
 _lock = threading.Lock()
 
 #: kernel launches since the last reset (two per compact_rows on CUDA:
-#: the layout scan and the copy)
+#: the layout scan and the copy); bumped under _lock, since the shards of
+#: the multi-device tier launch from several threads
 launches = 0
 
 #: nvcc's output of the last build in this process (ptxas resource usage)
@@ -187,13 +188,15 @@ def compact_rows_kernel(bodies: torch.Tensor, sizes: torch.Tensor):
         if err:
             raise RuntimeError(f"compact layout kernel launch failed: CUDA "
                                f"error {err}")
-        launches += 1
+        with _lock:
+            launches += 1
         err = lib.atpu_compact_copy(rows.data_ptr(), meta.data_ptr(),
                                     dense.data_ptr(), N, ROWS, stream)
         if err:
             raise RuntimeError(f"compact copy kernel launch failed: CUDA "
                                f"error {err}")
-        launches += 1
+        with _lock:
+            launches += 1
     return dense, meta[:2 * N + 1]
 
 

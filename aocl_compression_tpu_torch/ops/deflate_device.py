@@ -638,20 +638,20 @@ def _splice_dyn(hdr: bytes, hbits: int, body: np.ndarray,
 # --- host-facing batch helpers (bytes in / bytes out) -------------------------
 
 def encode_blocks(blocks: Sequence[bytes], accel: int = 1, *, device,
-                  mark=_no_mark) -> List[bytes]:
+                  mark=_no_mark, bucket=None) -> List[bytes]:
     """Compress blocks on `device` into sync-flushed raw-deflate chunks of
     one static block each; their concatenation (+ FINAL_BLOCK) is a valid
     deflate stream. mark(stage) is called on the host at "start", after
     the upload ("h2d"), and at the encoder's and the fetch's stage
-    marks."""
+    marks. bucket: lz4_device.upload_blocks'."""
     from . import compact
-    arr, lens, B, G = lz.upload_blocks(blocks, accel, device, mark)
+    arr, lens, B, G = lz.upload_blocks(blocks, accel, device, mark, bucket)
     out, sizes = make_encoder(B, G)(arr, lens, mark=mark)
     return compact.fetch_chunks(out, sizes, mark=mark)
 
 
 def encode_blocks_dyn(blocks: Sequence[bytes], accel: int = 1, *, device,
-                      mark=_no_mark):
+                      mark=_no_mark, bucket=None):
     """Dynamic-Huffman encode on `device`: per-block litlen/dist codes,
     chunks with the static path's sync-flushed contract. Returns (chunks,
     failed): failed lists the blocks whose Kraft fixup failed, with None
@@ -661,9 +661,10 @@ def encode_blocks_dyn(blocks: Sequence[bytes], accel: int = 1, *, device,
     OUTCAP) bytes _splice_dyn reads, instead of copying the whole (N,
     OUTCAP) buffer to the host as the JAX package does; the chunks are the
     same. mark(stage) as encode_blocks, plus the emitter's stages and
-    "header_splice" after the host's headers and splices."""
+    "header_splice" after the host's headers and splices. bucket:
+    lz4_device.upload_blocks'."""
     from . import compact
-    arr, lens, B, G = lz.upload_blocks(blocks, accel, device, mark)
+    arr, lens, B, G = lz.upload_blocks(blocks, accel, device, mark, bucket)
     out, body_bits, nb_lit, nb_dist, ok = make_encoder_dyn(B, G)(
         arr, lens, mark=mark)
     OUTCAP = out.shape[1]

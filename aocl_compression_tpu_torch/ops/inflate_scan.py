@@ -36,7 +36,8 @@ _LIB = os.path.join(compact._BUILD, "libatpu_inflate_scan.so")
 _lib = None
 _lock = threading.Lock()
 
-#: kernel launches since the last reset, one per wrapper call
+#: kernel launches since the last reset, one per wrapper call (bumped
+#: under _lock, as zstd_scan.launches)
 launches = {"inflate_symbol_scan": 0}
 
 #: nvcc's output of the last build in this process (ptxas resource usage)
@@ -105,5 +106,6 @@ def inflate_symbol_scan(cbytes, bitoff, fcL, limL, rkbL, permL, fcD, limD,
         if err:
             raise RuntimeError(f"inflate_symbol_scan kernel launch failed: "
                                f"CUDA error {err}")
-        launches["inflate_symbol_scan"] += 1
+        with _lock:
+            launches["inflate_symbol_scan"] += 1
     return litbuf, ll, ml, off, nbseq, litregen

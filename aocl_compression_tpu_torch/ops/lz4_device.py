@@ -759,13 +759,19 @@ def check_block_sizes(blocks, what: str = "encode"):
             f"host tier or block_size <= {MAX_DEVICE_BLOCK}")
 
 
-def upload_blocks(blocks: Sequence[bytes], accel: int, device, mark):
+def upload_blocks(blocks: Sequence[bytes], accel: int, device, mark,
+                  bucket=None):
     """The padded batch every encoder takes: (blocks (N, B) uint8, lens
     (N,) int32) on `device`, the bucket B and the parse grid G of
     `accel` (0 for tiny blocks, where the grid's overhead isn't worth it).
-    mark(stage) is called at "start" and after the upload ("h2d")."""
+    B is `bucket` where given (the multi-device tier passes the whole
+    batch's to every shard, so all shards encode at one geometry), else
+    the bucket of the longest block. mark(stage) is called at "start" and
+    after the upload ("h2d")."""
     check_block_sizes(blocks)
-    B = _bucket(max(len(b) for b in blocks))
+    B = bucket or _bucket(max(len(b) for b in blocks))
+    if max(len(b) for b in blocks) > B:
+        raise ValueError(f"a block is longer than the bucket {B}")
     N = len(blocks)
     arr = np.zeros((N, B), dtype=np.uint8)
     lens = np.zeros(N, dtype=np.int32)
@@ -783,7 +789,8 @@ def upload_blocks(blocks: Sequence[bytes], accel: int, device, mark):
 
 
 def encode_blocks(blocks: Sequence[bytes], accel: int = 1, depth: int = 2,
-                  nw: int = NW, lazy: int = 0, *, device, mark=_no_mark):
+                  nw: int = NW, lazy: int = 0, *, device, mark=_no_mark,
+                  bucket=None):
     """Compress a list of blocks on `device`; returns (bodies, tails,
     flagged) where bodies exclude the final literal-only sequence
     (stitcher input). flagged lists the blocks the sort-emit encoder could
@@ -791,9 +798,9 @@ def encode_blocks(blocks: Sequence[bytes], accel: int = 1, depth: int = 2,
     exceeds the match's spare capacity); their bodies are None, and the
     codec tier re-encodes them on the host. mark(stage) is called on the
     host at "start", after the batch's upload is enqueued ("h2d"), and at
-    the encoder's and the fetch's stage marks."""
+    the encoder's and the fetch's stage marks. bucket: upload_blocks'."""
     from . import compact
-    arr_d, lens_d, B, G = upload_blocks(blocks, accel, device, mark)
+    arr_d, lens_d, B, G = upload_blocks(blocks, accel, device, mark, bucket)
     out, sizes, tails, flags = make_encoder(B, G, depth, nw, lazy=lazy)(
         arr_d, lens_d, mark=mark)
     bodies = compact.fetch_chunks(out, sizes, mark=mark)
@@ -1002,23 +1009,27 @@ def make_decoder(chunk_cap: int, block_size: int):
 
 
 def decode_blocks(chunks: Sequence[bytes], dlens: Sequence[int],
-                  block_size: int, *, device, mark=_no_mark) -> List[bytes]:
+                  block_size: int, *, device, mark=_no_mark,
+                  bucket=None) -> List[bytes]:
     """Decompress a list of chunk regions on `device` (each decoding to
     <= 64 KiB). mark(stage) is called on the host, per device batch, at
     "start" (before the padded batch is built), after its upload is
     enqueued ("h2d_batch"), and at the decoder's and the fetch's stage
-    marks."""
+    marks. bucket: decode_batches'."""
     return decode_batches(make_decoder, chunks, dlens, block_size,
-                          device=device, mark=mark)
+                          device=device, mark=mark, bucket=bucket)
 
 
 def decode_batches(make_dec, chunks: Sequence[bytes], dlens: Sequence[int],
-                   block_size: int, *, device, mark=_no_mark) -> List[bytes]:
+                   block_size: int, *, device, mark=_no_mark,
+                   bucket=None) -> List[bytes]:
     """The host side of a device decoder (this module's, or the snappy
     decoder's): pad the chunks into (N, C) batches of at most
     (32 << 20) // C chunks, the JAX package's bound on the reachability
     matrices (S matrices of 128^2 per chunk), decode each with
-    make_dec(C, B) and fetch the rows through the compaction."""
+    make_dec(C, B) and fetch the rows through the compaction. (C, B) is
+    `bucket` where given (the multi-device tier passes the whole batch's
+    to every shard), else the buckets of these chunks."""
     from . import compact
     if not chunks:
         return []
@@ -1026,16 +1037,19 @@ def decode_batches(make_dec, chunks: Sequence[bytes], dlens: Sequence[int],
         raise ValueError(
             "device decode: decompressed block exceeds the 64 KiB limit "
             "(16-bit offset packing); use the host tier")
-    C = _bucket(max((len(c) for c in chunks), default=1))
+    C, B = bucket or (_bucket(max((len(c) for c in chunks), default=1)),
+                      _bucket(max(max(dlens), block_size)))
+    if max(len(c) for c in chunks) > C or max(dlens) > B:
+        raise ValueError(f"a chunk does not fit the buckets ({C}, {B})")
     max_n = max(1, (32 << 20) // C)
     if len(chunks) > max_n:
         out = []
         for i in range(0, len(chunks), max_n):
             out.extend(decode_batches(make_dec, chunks[i:i + max_n],
                                       dlens[i:i + max_n], block_size,
-                                      device=device, mark=mark))
+                                      device=device, mark=mark,
+                                      bucket=bucket))
         return out
-    B = _bucket(max(max(dlens), block_size))
     N = len(chunks)
     mark("start")
     arr = np.zeros((N, C), dtype=np.uint8)

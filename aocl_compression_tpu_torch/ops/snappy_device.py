@@ -391,15 +391,17 @@ def literal_element(lits: bytes) -> bytes:
 
 
 def encode_blocks(blocks: Sequence[bytes], accel: int = 1, *, device,
-                  mark=_no_mark):
+                  mark=_no_mark, bucket=None):
     """Compress blocks on `device` into element streams without the
     stream's varint preamble. Returns (fragments, flagged): flagged lists
     the blocks the sort-emit encoder could not serialize, whose fragments
     are None; the codec tier re-encodes them on the host. mark(stage) is
     called on the host at "start", after the upload ("h2d"), and at the
-    encoder's and the fetch's stage marks."""
+    encoder's and the fetch's stage marks. bucket:
+    lz4_device.upload_blocks'."""
     from . import compact
-    arr_d, lens_d, B, G = lz.upload_blocks(blocks, accel, device, mark)
+    arr_d, lens_d, B, G = lz.upload_blocks(blocks, accel, device, mark,
+                                           bucket)
     out, sizes, tails, flags = make_encoder(B, G)(arr_d, lens_d, mark=mark)
     frags: List[Optional[bytes]] = compact.fetch_chunks(out, sizes, mark=mark)
     flagged = np.nonzero(flags.cpu().numpy())[0].tolist()

@@ -660,18 +660,19 @@ def _assemble_frame(block: bytes, nlits: int, lits, streams, nseq: int,
 
 
 def encode_blocks(blocks: Sequence[bytes], level: int = 1, *, device,
-                  mark=_no_mark):
+                  mark=_no_mark, bucket=None):
     """Compress blocks into independent zstd frames on `device`: level <= 2
     the tile parse (G = 4), level >= 3 the exact parse. Returns (frames,
     dlens) for the RAP container. mark(stage) is called on the host at
     "start", after the upload ("h2d"), at the encoder's and both fetches'
     stage marks (the literal streams', then the sequence sections'), and
-    after the host's frame assembly ("assemble")."""
+    after the host's frame assembly ("assemble"). bucket:
+    lz4_device.upload_blocks'."""
     from . import compact
     # accel 2 is the tile grid G = 4 (0 when G * 4 > B), accel 1 the exact
     # parse: the JAX package's level rule
     arr, lens, B, G = lz.upload_blocks(blocks, 2 if level <= 2 else 1,
-                                       device, mark)
+                                       device, mark, bucket)
     N = len(blocks)
     (litbuf, lit_sizes, nlits, lits, seqbuf, seq_size, nseq, wbuf, wsize,
      tab_ok, fse_use, fse_norms) = make_encoder(B, G)(arr, lens, mark=mark)

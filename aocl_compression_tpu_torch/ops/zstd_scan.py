@@ -40,7 +40,8 @@ _LIB = os.path.join(compact._BUILD, "libatpu_zstd_scan.so")
 _lib = None
 _lock = threading.Lock()
 
-#: kernel launches since the last reset, one per wrapper call
+#: kernel launches since the last reset, one per wrapper call (bumped
+#: under _lock: the multi-device tier's shards launch from several threads)
 launches = {"fse_encode_scan": 0, "huf_literal_scan": 0,
             "fse_sequence_scan": 0}
 
@@ -88,7 +89,8 @@ def _launch(kernel: str, fn, *args) -> None:
     err = fn(*args)
     if err:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
-    launches[kernel] += 1
+    with _lock:
+        launches[kernel] += 1
 
 
 def _stream(dev) -> int:

@@ -11,7 +11,9 @@ Backend tiers (which implementation of a codec runs), lowest first:
   2 = KERNEL  — hand-written CUDA kernels for the hot stages: the
                 compaction (csrc/compact.cu, the JAX package's Pallas
                 kernel); a TORCH cap runs its plain version instead
-  3 = MULTI   — several devices (not ported yet)
+  3 = MULTI   — several devices: parallel/sharded.py (block data
+                parallelism over a list of devices in one process) and
+                parallel/distributed.py (over a torch.distributed group)
 
 Env vars, read like the JAX package reads them:
   AOCL_ENABLE_INSTRUCTIONS ∈ {HOST, TORCH, KERNEL, MULTI} — caps the tier.

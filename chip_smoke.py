@@ -99,11 +99,24 @@ non-zero before the last line:
      dictionary through the API, the bench CLI (-e lz4:0:2 on the card,
      every JSON line verified; one -n run) and profiling.trace around one
      device compress (the span and both compaction kernels in the trace);
- 13. one JSON line listing every ported kernel: compact_rows with its
-     launches summed over the paths of phases 4, 6-10 and 12, the zstd scan
-     kernels with theirs in phase 10, inflate_symbol_scan with its own in
-     phase 9;
- 14. last line: {"ok": true, "device": {...}}.
+ 13. the multi-device tier (parallel/sharded.py, parallel/distributed.py)
+     at world size 1 on the same corpus: setup("lz4", opt_var=2,
+     num_shards=4) (audit lz4_compress_blocks_multi, one shard a card,
+     phase 4's stream); sharded.compress_blocks_multi on four virtual
+     shards of the card (bodies and tails equal phase 4's, two compact_rows
+     launches a shard, MB/s and peak memory beside the single-device tier
+     in turns); snappy, zlib 1 and 2 and zstd 1 through their *_multi
+     variants on four virtual shards (each stream equal to its phase's,
+     MB/s beside the single-device variant in turns, fse_encode_scan once
+     a zstd shard); the lz4 MULTI decoder on four virtual shards (exact,
+     MB/s likewise); compress_blocks_distributed in a single-rank NCCL
+     group over a 1 x 4 host-chip mesh (tables and totals equal phase
+     4's); dryrun_multichip(4) on four virtual shards;
+ 14. one JSON line listing every ported kernel: compact_rows with its
+     launches summed over the paths of phases 4, 6-10, 12 and 13, the zstd
+     scan kernels with theirs in phases 10 and 13, inflate_symbol_scan with
+     its own in phase 9;
+ 15. last line: {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -162,6 +175,12 @@ PINNED_SURFACE_SHA256 = {
     "LZ4_compress_fast":
         "60f8e9401add97c3373f20e27da965c7202ec69d8730dad70d97c6858096dcda",
 }
+
+
+# The API's stream of the corpus from phases 4 and 8-10, which phase 13
+# holds the multi-device tier to: "lz4", "snappy", "zlib level 1",
+# "zlib level 2", "zstd level 1".
+STREAMS = {}
 
 
 def corpus(total: int, seed: int = 42) -> bytes:
@@ -495,7 +514,7 @@ def phase_main(data: bytes, blocks, dev):
     h = act.setup("lz4", opt_var=2, block_size=B, measure_stats=True)
     c, c_s, n_launch, peak_gb = run_path(
         "main", lambda: act.compress(h, data),
-        ("lz4_compress_blocks_torch", "fetch_chunks_kernel"))
+        ("lz4_compress_blocks_multi", "fetch_chunks_kernel"))
     if n_launch != 2 * 3:
         raise AssertionError("compact_rows did not launch its two kernels "
                              "once per compress call")
@@ -524,6 +543,7 @@ def phase_main(data: bytes, blocks, dev):
     print("[main] stage times, ms (min of 3; device events, host clock for "
           "the stitch and RAP after the fetch; the d2h copies are pinned): "
           + fmt_stages(stage))
+    STREAMS["lz4"] = c
     return n_launch, c
 
 
@@ -725,7 +745,7 @@ def phase_decode(data: bytes, streams, dev):
         try:
             d, d_s, launches, peak_gb = run_path(
                 f"decode {method}", lambda: act.decompress(h, c),
-                ("lz4_decompress_blocks_torch", "fetch_chunks_kernel"))
+                ("lz4_decompress_blocks_multi", "fetch_chunks_kernel"))
         finally:
             act.set_config(device_decode=False)
         if d != data:
@@ -818,7 +838,7 @@ def phase_snappy(data: bytes, blocks, dev):
     h = act.setup(method, **kw)
     c, c_s, launches, peak_gb = run_path(
         "snappy", lambda: act.compress(h, data),
-        ("snappy_compress_blocks_torch", "fetch_chunks_kernel"))
+        ("snappy_compress_blocks_multi", "fetch_chunks_kernel"))
     if launches != 2 * 3:
         raise AssertionError("snappy: compact_rows did not launch its two "
                              "kernels once per compress call")
@@ -837,6 +857,7 @@ def phase_snappy(data: bytes, blocks, dev):
           f"{c_s * 1e3:.2f} ms); host decode {mb / d_s:.2f} MB/s; round trip "
           f"exact, serial decode exact; peak device memory {peak_gb:.2f} GB")
     check_pinned("snappy", act.compress(h, data[:PINNED_BLOCKS * B]))
+    STREAMS["snappy"] = c
 
     stage, stream = staged(
         lambda rec: _device_frags(blocks, 2, dev, mark=rec),
@@ -911,7 +932,7 @@ def phase_zlib(data: bytes, blocks, dev):
         h = act.setup(method, **kw)
         c, c_s, launches, peak_gb = run_path(
             f"zlib{level}", lambda: act.compress(h, data),
-            ("zlib_compress_blocks_torch", "fetch_chunks_kernel"))
+            ("zlib_compress_blocks_multi", "fetch_chunks_kernel"))
         if launches != 2 * 3:
             raise AssertionError(f"{label}: compact_rows did not launch its "
                                  f"two kernels once per compress call")
@@ -930,7 +951,7 @@ def phase_zlib(data: bytes, blocks, dev):
               f"round trip exact, stdlib zlib reads it after skip_rap_frame; "
               f"peak device memory {peak_gb:.2f} GB")
         check_pinned(label, act.compress(h, data[:PINNED_BLOCKS * B]))
-        streams[level] = c
+        streams[level] = STREAMS[label] = c
         stage, stream = staged(
             lambda rec: _device_chunks(blocks, level, dev, mark=rec),
             stages[level],
@@ -1394,7 +1415,7 @@ def phase_zstd(data: bytes, blocks, dev):
     h = act.setup(method, block_size=B, **kw)
     c, c_s, launches, peak_gb = run_path(
         "zstd", lambda: act.compress(h, data),
-        ("zstd_compress_blocks_torch", "fetch_chunks_kernel"),
+        ("zstd_compress_blocks_multi", "fetch_chunks_kernel"),
         per_call={"fetch_chunks_kernel": 2})
     enc = dict(zstd_scan.launches)
     if launches != 2 * 2 * 3 or enc["fse_encode_scan"] != 3:
@@ -1415,6 +1436,7 @@ def phase_zstd(data: bytes, blocks, dev):
           f"GB; kernel launches in 3 calls: compact_rows {launches}, "
           f"fse_encode_scan {enc['fse_encode_scan']}")
     check_pinned("zstd level 1", act.compress(h, data[:PINNED_BLOCKS * B]))
+    STREAMS["zstd level 1"] = c
 
     stage, _, frames = seq_stages(
         lambda rec: _device_frames(blocks, 1, dev, mark=rec))
@@ -1805,7 +1827,7 @@ def phase_surface(data: bytes, dev):
         lines += cli(["-n", "-e", "zstd", "-t", "-i", "3", "--json",
                       "--device", "cuda", path])
     # -i 10: ten compress calls, one device batch (one compact_rows) each
-    if "lz4_compress_blocks_torch" not in hits or \
+    if "lz4_compress_blocks_multi" not in hits or \
             paths["bench CLI -e lz4:0:2"] != 2 * 10:
         raise AssertionError("bench CLI: -e lz4:0:2 did not run the device "
                              "tier once per compress call")
@@ -1832,6 +1854,228 @@ def phase_surface(data: bytes, dev):
           f"both compact_rows kernels ({lost} windows with no device event "
           f"profiled again)")
     return paths, frame_err
+
+
+def in_turns(single, multi):
+    """single() and multi() once each to warm up, then in turns A B B A,
+    one call each (host clock); the first multi() runs with the audit on
+    and every kernel count set to 0 just before: (its result, {"single":
+    [s, s], "multi": [s, s]}, audit hits, compact_rows launches,
+    fse_encode_scan launches)."""
+    from aocl_compression_tpu_torch.ops import compact, zstd_scan
+    from aocl_compression_tpu_torch.utils import dispatch
+    single()
+    multi()
+    torch.cuda.synchronize()
+    times = {"single": [best_s(single, 1)[1]]}
+    dispatch.enable_audit(True)
+    reset_counts()
+    try:
+        res, t = best_s(multi, 1)
+        hits = dispatch.audit_hits()
+    finally:
+        dispatch.enable_audit(False)
+    n, fse = compact.launches, zstd_scan.launches["fse_encode_scan"]
+    times["multi"] = [t, best_s(multi, 1)[1]]
+    times["single"].append(best_s(single, 1)[1])
+    return res, times, hits, n, fse
+
+
+def fmt_turns(mb, times):
+    return (f"{mb / min(times['multi']):.2f} MB/s against the single-device "
+            f"tier's {mb / min(times['single']):.2f} (best of 2, in turns A "
+            f"B B A: " + ", ".join(f"{k} {[round(x * 1e3, 2) for x in v]} ms"
+                                   for k, v in times.items()) + ")")
+
+
+def phase_multi(data: bytes, blocks, dev):
+    """13. The multi-device tier at world size 1, on the corpus: the API at
+    num_shards=4 (one shard a card), four virtual shards of this card for
+    the lz4 encoder, snappy, zlib 1 and 2, zstd 1 and the lz4 decoder,
+    compress_blocks_distributed in a single-rank NCCL group over a 1 x 4
+    host-chip mesh, and dryrun_multichip(4). Every output is held to the
+    single-device tier's (phases 4 and 8-10). Returns ({path: compact_rows
+    launches}, fse_encode_scan launches)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import aocl_compression_tpu_torch as act
+    from aocl_compression_tpu_torch.codecs.lz4 import _device_bodies
+    from aocl_compression_tpu_torch.codecs.snappy import _varint
+    from aocl_compression_tpu_torch.codecs.zlib_bzip2_lzma import _trailer
+    from aocl_compression_tpu_torch.ops import compact, zstd_scan
+    from aocl_compression_tpu_torch.ops.deflate_device import ZLIB_HEADER
+    from aocl_compression_tpu_torch.parallel import (distributed, dryrun,
+                                                     sharded)
+    from aocl_compression_tpu_torch.runtime import native
+    from aocl_compression_tpu_torch.utils import dispatch
+    from aocl_compression_tpu_torch.utils.config import TIER_MULTI, TIER_TORCH
+
+    mb = len(data) / 1e6
+    devices = [dev] * 4
+    paths = {}
+    ref = STREAMS["lz4"]
+    sha = hashlib.sha256(ref).hexdigest()
+
+    # 1. the API at world size 1: shards = min(4, device count)
+    shards = min(4, torch.cuda.device_count())
+    h = act.setup("lz4", opt_var=2, num_shards=4, block_size=B)
+    c, c_s, launches, peak_gb = run_path(
+        "multi api", lambda: act.compress(h, data),
+        ("lz4_compress_blocks_multi", "fetch_chunks_kernel"),
+        per_call={"fetch_chunks_kernel": shards})
+    if c != ref or launches != 2 * shards * 3:
+        raise AssertionError("multi api: the stream differs from phase 4's, "
+                             "or compact_rows did not launch once a shard")
+    paths["multi: API num_shards=4"] = launches
+    print(f"[multi] setup('lz4', opt_var=2, num_shards=4, block_size={B}) on "
+          f"{h.device}: {shards} shard(s) ({torch.cuda.device_count()} "
+          f"card(s)); {len(c)} B, sha256 {hashlib.sha256(c).hexdigest()} "
+          f"(phase 4: {len(ref)} B, {sha}); compress {mb / c_s:.2f} MB/s "
+          f"(best of 3); peak device memory {peak_gb:.2f} GB")
+
+    # 2. four virtual shards of this card, beside the single-device tier
+    def single():
+        return _device_bodies(blocks, 2, dev)
+
+    def multi():
+        return sharded.compress_blocks_multi(blocks, 2, 4, device=dev,
+                                             devices=devices)
+
+    times, peaks = {}, {}
+    for name, fn in (("single", single), ("multi", multi), ("multi", multi),
+                     ("single", single)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out, t = best_s(fn)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        times.setdefault(name, []).append(t)
+        if name == "multi":
+            launches = compact.launches
+            got = out
+        else:
+            want = out
+    if got != (want[0], want[1]) or stitch_rap(*got, blocks) != ref:
+        raise AssertionError("multi: 4 virtual shards differ from the "
+                             "single-device tier")
+    if launches != 2 * 4 * 3:
+        raise AssertionError("multi: compact_rows did not launch once a "
+                             "shard")
+    paths["multi: lz4 4 virtual shards"] = launches
+    print(f"[multi] compress_blocks_multi(blocks, 2, num_shards=4, devices="
+          f"[{dev}] * 4): bodies and tails equal phase 4's path; "
+          f"compact_rows launches in 3 calls {launches}; "
+          f"{mb / min(times['multi']):.2f} MB/s against the single-device "
+          f"tier's {mb / min(times['single']):.2f} (best of 3, A B B A: "
+          + ", ".join(f"{k} {[round(x * 1e3, 2) for x in v]} ms"
+                      for k, v in times.items())
+          + f"); peak device memory {peaks['multi']:.2f} GB against "
+          f"{peaks['single']:.2f}")
+
+    # 3. snappy, zlib 1 and 2, zstd 1: their MULTI variants, 4 shards,
+    # beside their single-device (TORCH) variants in turns
+    finish = {
+        "snappy": lambda r: rap_stream(r[0], r[1], _varint(len(data))),
+        "zlib level 1": lambda r: rap_stream(r[0], r[1], ZLIB_HEADER)
+        + _trailer(data),
+        "zlib level 2": lambda r: rap_stream(r[0], r[1], ZLIB_HEADER)
+        + _trailer(data),
+        "zstd level 1": lambda r: rap_zstd(r[0], blocks)}
+    fse = 0
+    for label, (method, kw) in PINNED_CALLS.items():
+        if label not in finish:
+            continue
+        args = (blocks, kw.get("level", 2) if method != "snappy" else 2) + (
+            (None,) if method == "zstd" else ()) + (dev,)
+        r, times, hits, n, nf = in_turns(
+            lambda: dispatch.resolve(method, "compress_blocks", TIER_TORCH)(
+                *args),
+            lambda: dispatch.resolve(method, "compress_blocks", TIER_MULTI)(
+                *args, num_shards=4, devices=devices))
+        fse += nf
+        want_n = 2 * 4 * (2 if method == "zstd" else 1)
+        stream = finish[label](r)
+        if stream != STREAMS[label]:
+            raise AssertionError(f"multi {label}: the stream differs from "
+                                 f"its phase's")
+        if hits.get(f"{method}_compress_blocks_multi") != 1 or n != want_n:
+            raise AssertionError(f"multi {label}: audit {hits} or "
+                                 f"compact_rows launches {n}")
+        paths[f"multi: {label} 4 virtual shards"] = n
+        print(f"[multi] {method}_compress_blocks_multi({kw}, num_shards=4, "
+              f"4 virtual shards): {len(stream)} B, equal to its phase's "
+              f"stream; " + fmt_turns(mb, times) + f"; audit "
+              f"{json.dumps(hits, sort_keys=True)}; compact_rows launches "
+              f"{n}" + (f", fse_encode_scan {nf}" if method == "zstd"
+                        else ""))
+    if fse != 4:
+        raise AssertionError("multi zstd: fse_encode_scan did not launch "
+                             "once a shard")
+
+    # 4. the lz4 decoder over 4 virtual shards (the variant device decode
+    # resolves), on phase 4's stream, beside the single-device decoder
+    offs, lens_, dlens = native.rap_parse(ref)
+    chunks = [ref[int(o):int(o) + int(n)] for o, n in zip(offs, lens_)]
+    dl = [int(x) for x in dlens]
+    out, times, hits, n, _ = in_turns(
+        lambda: dispatch.resolve("lz4", "decompress_blocks", TIER_TORCH)(
+            chunks, dl, B, dev),
+        lambda: dispatch.resolve("lz4", "decompress_blocks", TIER_MULTI)(
+            chunks, dl, B, dev, num_shards=4, devices=devices))
+    paths["multi: lz4 decode 4 virtual shards"] = n
+    if b"".join(out) != data or hits.get("lz4_decompress_blocks_multi") != 1:
+        raise AssertionError(f"multi decode: not exact, or audit {hits}")
+    print(f"[multi] lz4_decompress_blocks_multi(num_shards=4, 4 virtual "
+          f"shards) of phase 4's stream: exact; " + fmt_turns(mb, times)
+          + f"; audit {json.dumps(hits, sort_keys=True)}; compact_rows "
+          f"launches {n}")
+
+    # 5. distributed.py in a single-rank NCCL group, 1 x 4 virtual chips:
+    # one call to form the communicator, then the counted one
+    bodies, tails = want
+    with tempfile.TemporaryDirectory() as td:
+        torch.cuda.set_device(0)   # NCCL's rank 0 runs on card 0
+        dist.init_process_group(
+            "nccl", init_method=f"file://{td}/store", world_size=1, rank=0,
+            timeout=distributed.TIMEOUT)
+        try:
+            mesh = distributed.make_host_chip_mesh(1, 4, devices=devices)
+            stats = {}
+
+            def run():
+                return distributed.compress_blocks_distributed(
+                    blocks, B, mesh, accel=2, stats=stats)
+
+            _, t_first = best_s(run, 1)
+            reset_counts()
+            (dchunks, (sizes, dtails), n_glob), t = best_s(run, 1)
+            paths["multi: distributed 1 x 4"] = compact.launches
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    if (dchunks != bodies or sizes.tolist() != [len(x) for x in bodies]
+            or dtails.tolist() != tails or n_glob != N
+            or stats != dict(total_in=len(data),
+                             total_out=int(sizes.sum()))):
+        raise AssertionError("multi distributed: the tables or totals differ "
+                             "from phase 4's")
+    print(f"[multi] compress_blocks_distributed over a 1 x 4 host-chip mesh "
+          f"of virtual shards, {backend} group of 1 rank: sizes and tails "
+          f"equal phase 4's, total_in {stats['total_in']}, total_out "
+          f"{stats['total_out']} (= the sizes' sum); {mb / t:.2f} MB/s (one "
+          f"call, with the collectives; the group's first call, which forms "
+          f"the communicator, {mb / t_first:.2f}); compact_rows launches "
+          f"{paths['multi: distributed 1 x 4']}")
+
+    # 6. dryrun_multichip on four virtual shards
+    reset_counts()
+    dryrun.dryrun_multichip(4, devices=devices)
+    paths["multi: dryrun_multichip(4)"] = compact.launches
+    return paths, fse
 
 
 def rap_zstd(frames, blocks):
@@ -1911,6 +2155,9 @@ def main():
     phase_bzip2_lzma(data, dev)
     surface, frame_err = phase_surface(data, dev)
     paths.update(surface)
+    multi, fse_multi = phase_multi(data, blocks, dev)
+    paths.update(multi)
+    scans["fse_encode_scan"]["launches"] += fse_multi
     kernel["max_abs_err"] = max(kernel["max_abs_err"], frame_err)
     print("[paths] compact_rows launches: " + ", ".join(
         f"{k} {v}" for k, v in paths.items()))

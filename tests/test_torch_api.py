@@ -120,8 +120,9 @@ def test_audit_shows_port_tiers_only(device_tier):
 
 def test_lz4_num_shards_requests_the_device_tier(device_tier):
     """num_shards > 1 requests the device tier at opt_var 0 (accel 1: the
-    exact parse), as in the JAX package; the TORCH tier serves it until
-    the multi-device tier is ported."""
+    exact parse), as in the JAX package; under the XLA cap the TORCH tier
+    serves it (tests/test_torch_multi.py holds the MULTI tier it reaches
+    without a cap)."""
     data = _data("mixed")
     ref = actpu.compress(actpu.setup("lz4", num_shards=2, opt_var=0,
                                      block_size=4096), data)
@@ -312,15 +313,15 @@ def test_zlib_without_opt_in_stays_on_host(monkeypatch):
     """With no opt-in, calibrated dispatch keeps zlib levels 1-2 on the
     host tier (the port's table is empty, so no device tier is picked on
     its own); opt_var=2 or AOCL_ENABLE_INSTRUCTIONS naming a device tier
-    selects the device tier; the block size follows, as in the JAX
-    package."""
+    selects the device tier (with no cap its top one, MULTI, where the JAX
+    package picks MESH); the block size follows, as in the JAX package."""
     from aocl_compression_tpu_torch.utils import calibration
     monkeypatch.delenv("AOCL_ENABLE_INSTRUCTIONS", raising=False)
     assert calibration.MEASURED_MBPS == {}
     data = _data("text") * 40
     codec = act.get_codec("zlib")
     for kw, name in ((dict(level=1), "zlib_compress_blocks_host"),
-                     (dict(level=2, opt_var=2), "zlib_compress_blocks_torch")):
+                     (dict(level=2, opt_var=2), "zlib_compress_blocks_multi")):
         h = act.setup("zlib", device="cpu", **kw)
         tdispatch.enable_audit(True)
         try:
@@ -357,7 +358,9 @@ def test_calibrated_dispatch_policy(monkeypatch):
                         ("zlib", "compress_blocks"), {0: 100.0})
     assert tdispatch.resolve_with_tier("zlib", "compress_blocks",
                                        calibrated=True)[1] == 0
-    assert tdispatch.resolve_with_tier("zlib", "compress_blocks")[1] == 1
+    # uncalibrated, the highest registered tier: MULTI, as the JAX
+    # package's MESH
+    assert tdispatch.resolve_with_tier("zlib", "compress_blocks")[1] == 3
 
 
 def test_snappy_device_decode_round_trip(device_tier, monkeypatch):

@@ -34,6 +34,7 @@ from aocl_compression_tpu_torch.codecs import (snappy,  # noqa
                                                zlib_bzip2_lzma, zstd,
                                                zstd_format)
 from aocl_compression_tpu_torch.parallel import container
+from aocl_compression_tpu_torch.parallel import distributed, dryrun, sharded
 from aocl_compression_tpu_torch.utils import calibration  # noqa
 import zlib
 data = (b"the block hash match stream " * 200)[:4000]
@@ -95,6 +96,12 @@ with tempfile.TemporaryDirectory() as td:
         assert bench.main(["-e", "lz4:0:2", "-t", "-i", "1", "--device",
                            "cpu", path]) == 0
 assert bench.main is bench_cli.main
+# the multi-device tier on virtual shards of the CPU
+with contextlib.redirect_stdout(io.StringIO()):
+    dryrun.dryrun_multichip(2, device="cpu")
+assert sharded.compress_blocks_multi([data[:2500], data[2500:]], 2, 2,
+                                     device="cpu")[1]
+assert distributed.make_host_chip_mesh(2, 2, device="cpu").size == 4
 assert not any(m == "jax" or m.startswith("aocl_compression_tpu.")
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
