@@ -96,9 +96,12 @@ def compress_frame(data: bytes, block_size_id: int = 4,
     return bytes(out)
 
 
-def decompress_frame(data: bytes) -> bytes:
+def decompress_frame(data: bytes, max_tier: Optional[int] = None,
+                     opt_off: bool = False) -> bytes:
     """Decode an LZ4 frame (independent or linked blocks, checksums
-    verified) on the host."""
+    verified) on the host. max_tier and opt_off are taken, and ignored, as
+    the JAX package's decompress_frame takes them: every tier decodes a
+    frame on the host."""
     if len(data) < 7 or struct.unpack_from("<I", data)[0] != MAGIC:
         raise ValueError("not an LZ4 frame (bad magic)")
     pos = 4

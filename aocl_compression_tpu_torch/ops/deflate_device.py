@@ -17,8 +17,10 @@ byte-aligned and concatenate; the codec closes the stream with the empty
 final static block 03 00.
 
 The dynamic path also builds each block's length-limited, Kraft-exact
-litlen and distance codes on the device (_kraft_lengths,
-_canonical_codes) and emits the body at bit offset 0; the host writes
+litlen and distance codes on the device (_kraft_lengths, whose Kraft
+absorb is the hand kernel kraft_absorb of csrc/entropy_scan.cu on CUDA and
+its plain loop on the CPU; _canonical_codes) and emits the body at bit
+offset 0; the host writes
 the block header (HLIT/HDIST/HCLEN and the RLE'd code lengths) from the
 fetched code lengths and shifts the body in behind it (_splice_dyn).
 
@@ -255,11 +257,8 @@ def _kraft_lengths(hist, NSYM: int, MAXLEN: int = _MAXLEN):
     (N, NSYM): (nb (N, NSYM) int32, ok (N,) bool).
 
     The JAX package's lax.sort by (-hist, sym) is one sort of the unique
-    key -hist * 1024 + sym; its lax.scan over the sorted symbols is a loop
-    of tensor ops over the NSYM steps, each step on all N rows. A code
-    length c = 2^sh, so the scan's D // c is D >> sh."""
-    N = hist.shape[0]
-    dev = hist.device
+    key -hist * 1024 + sym; its lax.scan over the sorted symbols is
+    _kraft_absorb."""
     i64 = torch.int64
     present = hist > 0
     total = torch.clamp(hist.sum(dim=1, dtype=i64), min=1)[:, None]
@@ -267,18 +266,40 @@ def _kraft_lengths(hist, NSYM: int, MAXLEN: int = _MAXLEN):
                       rounding_mode="floor").to(_I32)
     f = _floor_log2(torch.clamp(share, min=1), MAXLEN + 1)
     nb = torch.where(present, torch.clamp(MAXLEN - f, 1, MAXLEN), 0)
-    sh = MAXLEN - torch.clamp(nb, min=1)
-    contrib = torch.where(present, _pow2(sh), 0)
+    contrib = torch.where(present, _pow2(MAXLEN - torch.clamp(nb, min=1)), 0)
     D = (1 << MAXLEN) - contrib.sum(dim=1, dtype=_I32)
 
-    sym = _arange(NSYM, dev)
+    sym = _arange(NSYM, hist.device)
     order = torch.sort(-hist.to(i64) * 1024 + sym, dim=1).indices
-    nbs = torch.gather(nb, 1, order)
-    sh_s = torch.gather(sh, 1, order)
+    nbs2, D = _kraft_absorb(torch.gather(nb, 1, order), D, MAXLEN)
+    nb_final = torch.empty_like(nbs2).scatter_(1, order, nbs2)
+    ok = (D == 0) & (present.sum(dim=1) >= 2)
+    return nb_final, ok
+
+
+def _kraft_absorb(nbs, D, MAXLEN: int):
+    """The Kraft deficit D (N,) absorbed over each row's sorted code
+    lengths nbs (N, NSYM), int32 in [0, MAXLEN]: (nbs2, D left), the JAX
+    package's lax.scan (deflate_device._kraft_lengths, zstd_device.
+    _block_huffman). A CUDA tensor runs the kernel kraft_absorb
+    (csrc/entropy_scan.cu), a CPU tensor the plain loop."""
+    if nbs.is_cuda:
+        from . import entropy_scan
+        return entropy_scan.kraft_absorb(nbs, D, MAXLEN)
+    if nbs.device.type == "cpu":
+        return _kraft_absorb_plain(nbs, D, MAXLEN)
+    raise ValueError(f"_kraft_absorb: unsupported device {nbs.device}")
+
+
+def _kraft_absorb_plain(nbs, D, MAXLEN: int):
+    """PyTorch version of kraft_absorb: one step of tensor ops per symbol
+    over all N rows. A code length c = 2^sh, so the scan's D // c is
+    D >> sh."""
+    sh_s = MAXLEN - torch.clamp(nbs, min=1)
     c_s = torch.where(nbs > 0, _pow2(sh_s), 0)
     lim_s = torch.clamp(nbs - 1, min=0)
     ks = []
-    for s in range(NSYM):
+    for s in range(nbs.shape[1]):
         c = c_s[:, s]
         q = torch.clamp(torch.where(c > 0, (D >> sh_s[:, s]) + 1, 1), min=1)
         # floor(log2 q) of q in [1, 2^16]: frexp is exact on these floats
@@ -286,10 +307,7 @@ def _kraft_lengths(hist, NSYM: int, MAXLEN: int = _MAXLEN):
                           lim_s[:, s])
         D = D - c * (_pow2(k) - 1)
         ks.append(k)
-    nbs2 = nbs - torch.stack(ks, dim=1).to(nbs.dtype)
-    nb_final = torch.empty_like(nbs2).scatter_(1, order, nbs2)
-    ok = (D == 0) & (present.sum(dim=1) >= 2)
-    return nb_final.to(_I32), ok
+    return nbs - torch.stack(ks, dim=1).to(nbs.dtype), D
 
 
 def _canonical_codes(nb, NSYM: int, MAXLEN: int = _MAXLEN):

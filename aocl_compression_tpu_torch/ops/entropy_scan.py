@@ -1,0 +1,142 @@
+"""Wrappers of the encoders' entropy-table scan kernels
+(csrc/entropy_scan.cu).
+
+Two hand kernels for sm_90a, one thread per row (codec block) and 32 rows
+to a CUDA block, with the rows staged in shared memory, built with nvcc
+into _build/ at first use and bound with ctypes, as ops/zstd_scan.py builds
+zstd_scan.cu:
+
+  kraft_absorb        — the Kraft-deficit absorb over each row's
+                        frequency-sorted code lengths
+                        (ops/deflate_device._kraft_absorb: zlib level 2's
+                        _kraft_lengths at 288 and 32 symbols, MAXLEN 15;
+                        zstd's _block_huffman at 256 symbols, MAXLEN 11);
+  weights_fse_encode  — the two-state FSE encode of each row's 255 Huffman
+                        weights with the static weight table, packed into
+                        the row's 512 output bytes
+                        (ops/zstd_device._encode_weights).
+
+Each wrapper takes CUDA tensors only, allocates its outputs with
+torch.empty, launches on the current stream and raises when the launch
+fails. Their plain PyTorch versions live beside their callers, which pick
+the kernel for a CUDA tensor and the plain loop for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import torch
+
+from . import compact
+
+_SRC = os.path.join(compact._PKG, "csrc", "entropy_scan.cu")
+_LIB = os.path.join(compact._BUILD, "libatpu_entropy_scan.so")
+
+WCAP = 512      # output bytes of a weight row
+WNUM = 255      # weights a row
+
+_lib = None
+_lock = threading.Lock()
+
+#: kernel launches since the last reset, one per wrapper call (bumped
+#: under _lock: the multi-device tier's shards launch from several threads)
+launches = {"kraft_absorb": 0, "weights_fse_encode": 0}
+
+#: nvcc's output of the last build in this process (ptxas resource usage)
+build_log = ""
+
+
+def build() -> str:
+    """Compile csrc/entropy_scan.cu into _build/ (if stale) and return the
+    library path. Raises if nvcc fails."""
+    global build_log
+    log = compact.nvcc_build(_SRC, _LIB)
+    if log:
+        build_log = log
+    return _LIB
+
+
+def _get_lib() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            p, i = ctypes.c_void_p, ctypes.c_int
+            for name, nptr, nint in (("atpu_kraft_absorb", 4, 3),
+                                     ("atpu_weights_fse_encode", 6, 2)):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = [p] * nptr + [i] * nint + [p]
+            _lib = lib
+    return _lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
+    if not t.is_cuda or t.device != dev:
+        raise ValueError(f"{name} must be a CUDA tensor on {dev}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {dtype} of shape {tuple(shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 4:
+        raise ValueError(f"{name} must be contiguous and 4-byte aligned")
+
+
+def _launch(kernel: str, fn, *args) -> None:
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    with _lock:
+        launches[kernel] += 1
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def kraft_absorb(nbs, d0, MAXLEN: int):
+    """nbs (N, NSYM) int32 code lengths in [0, MAXLEN], sorted by the
+    caller; d0 (N,) int32 Kraft deficits -> (nbs2 (N, NSYM), D (N,)), both
+    int32: the lengths after the absorb and the deficit left."""
+    N, NSYM = nbs.shape
+    dev = nbs.device
+    if not 1 <= MAXLEN <= 30 or NSYM < 1:
+        raise ValueError("kraft_absorb takes 1 <= MAXLEN <= 30 and NSYM >= 1")
+    _check("nbs", nbs, torch.int32, (N, NSYM), dev)
+    _check("d0", d0, torch.int32, (N,), dev)
+    nbs2 = torch.empty_like(nbs)
+    dout = torch.empty_like(d0)
+    if N:
+        lib = _get_lib()
+        with torch.cuda.device(dev):
+            _launch("kraft_absorb", lib.atpu_kraft_absorb, nbs.data_ptr(),
+                    d0.data_ptr(), nbs2.data_ptr(), dout.data_ptr(), N, NSYM,
+                    MAXLEN, _stream(dev))
+    return nbs2, dout
+
+
+def weights_fse_encode(weights, nxt, dnb, dfs):
+    """weights (N, 255) int32 in [0, NSYM); the static table: nxt (64,),
+    dnb / dfs (NSYM,) int32, NSYM <= 16 -> (buf (N, 512) uint8, size (N,)
+    int32): each row's FSE-coded weight description and its byte count."""
+    N = weights.shape[0]
+    NSYM = dnb.shape[0]
+    dev = weights.device
+    if not 1 <= NSYM <= 16:
+        raise ValueError("weights_fse_encode takes a table of 1-16 symbols")
+    _check("weights", weights, torch.int32, (N, WNUM), dev)
+    _check("nxt", nxt, torch.int32, (64,), dev)
+    _check("dnb", dnb, torch.int32, (NSYM,), dev)
+    _check("dfs", dfs, torch.int32, (NSYM,), dev)
+    buf = torch.empty((N, WCAP), dtype=torch.uint8, device=dev)
+    size = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N:
+        lib = _get_lib()
+        with torch.cuda.device(dev):
+            _launch("weights_fse_encode", lib.atpu_weights_fse_encode,
+                    weights.data_ptr(), nxt.data_ptr(), dnb.data_ptr(),
+                    dfs.data_ptr(), buf.data_ptr(), size.data_ptr(), N, NSYM,
+                    _stream(dev))
+    return buf, size

@@ -8,6 +8,9 @@ frames, one single-block frame per input block, built on the device:
   - a per-block Huffman literal table (_block_huffman: log2-share lengths,
     the Kraft deficit absorbed over the frequency-sorted symbols), its
     255-weight description FSE-coded with a static table (_encode_weights);
+    the absorb and the weight encode are the hand kernels kraft_absorb and
+    weights_fse_encode (csrc/entropy_scan.cu) on CUDA, plain loops on the
+    CPU;
   - 4-stream Huffman literals: bit offsets from one reverse cumsum, the
     codes scatter-added into 32-bit words of per-stream regions;
   - per-block FSE sequence tables (custom when cheaper than the predefined
@@ -38,7 +41,8 @@ import torch
 from ..codecs import zstd_format as ZF
 from . import lz4_device as lz
 from .compact import _no_mark
-from .deflate_device import _floor_log2, _pow2, _scatter_add
+from .deflate_device import (_floor_log2, _kraft_absorb, _pow2,
+                             _scatter_add)
 from .lz4_device import _I32, MIN_MATCH, _arange
 
 WCAP = 512
@@ -133,9 +137,7 @@ def _block_huffman(lits32, nlits):
     Returns (code (N, 256), nb (N, 256), weights (N, 255), ok (N,)). The
     JAX package's lax.sort by (-hist, sym) and its inverse are one sort of
     the unique key -hist * 256 + sym and a scatter by its permutation; its
-    256-step lax.scan is a loop of tensor ops over the N blocks, with
-    D // c as D >> (11 - nb) (c is a power of two) and the floor log2 an
-    exact frexp."""
+    256-step lax.scan is deflate_device._kraft_absorb at MAXLEN 11."""
     N, B = lits32.shape
     dev = lits32.device
     j = _arange(B, dev)
@@ -154,19 +156,7 @@ def _block_huffman(lits32, nlits):
 
     sym = _arange(256, dev)
     order = torch.sort(-hist.long() * 256 + sym, dim=1).indices
-    nbs = torch.gather(nb, 1, order)
-    sh_s = 11 - torch.clamp(nbs, min=1)
-    c_s = torch.where(nbs > 0, _pow2(sh_s), 0)
-    lim_s = torch.clamp(nbs - 1, min=0)
-    ks = []
-    for s in range(256):
-        c = c_s[:, s]
-        q = torch.clamp(torch.where(c > 0, (D >> sh_s[:, s]) + 1, 1), min=1)
-        k = torch.minimum(torch.frexp(q.to(torch.float32)).exponent - 1,
-                          lim_s[:, s])
-        D = D - c * (_pow2(k) - 1)
-        ks.append(k)
-    nbs2 = nbs - torch.stack(ks, dim=1).to(nbs.dtype)
+    nbs2, D = _kraft_absorb(torch.gather(nb, 1, order), D, 11)
     nb_final = torch.empty_like(nbs2).scatter_(1, order, nbs2)
     ok = (D == 0) & (npres >= 2)
 
@@ -191,9 +181,24 @@ def _block_huffman(lits32, nlits):
 
 
 def _encode_weights(weights):
-    """Two-state FSE encode of each row's 255-entry weight sequence with
-    the static weight table: (buf (N, 512) uint8, size (N,)). The JAX
-    package's 126-step lax.scan is a loop of tensor ops over the N rows."""
+    """Two-state FSE encode of each row's 255-entry weight sequence (N,
+    255), int32 in [0, 12), with the static weight table: (buf (N, 512)
+    uint8, size (N,) int32). A CUDA tensor runs the kernel
+    weights_fse_encode (csrc/entropy_scan.cu), a CPU tensor the plain
+    loop."""
+    c = _consts(weights.device)
+    if weights.is_cuda:
+        from . import entropy_scan
+        return entropy_scan.weights_fse_encode(
+            weights.contiguous(), c["w_nxt"], c["w_dnb"], c["w_dfs"])
+    if weights.device.type == "cpu":
+        return _encode_weights_plain(weights)
+    raise ValueError(f"_encode_weights: unsupported device {weights.device}")
+
+
+def _encode_weights_plain(weights):
+    """PyTorch version of weights_fse_encode: the JAX package's 126-step
+    lax.scan as a loop of tensor ops over the N rows, then the bit pack."""
     N = weights.shape[0]
     dev = weights.device
     c = _consts(dev)

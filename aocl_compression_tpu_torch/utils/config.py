@@ -4,10 +4,11 @@ Backend tiers (which implementation of a codec runs), lowest first:
 
   0 = HOST    — host C++ path (csrc/libaocl_tpu_host.so)
   1 = TORCH   — PyTorch tensor pipeline on the handle's device. The
-                serial-scan kernels (csrc/zstd_scan.cu, csrc/inflate_scan.cu)
-                belong to this tier: they replace the JAX package's
-                lax.scans, which are XLA-tier code, and their plain loops
-                cannot serve on the card (seconds per batch).
+                serial-scan kernels (csrc/zstd_scan.cu, csrc/inflate_scan.cu,
+                csrc/entropy_scan.cu) belong to this tier: they replace the
+                JAX package's lax.scans, which are XLA-tier code, and their
+                plain loops cannot serve on the card (launch-bound: tens of
+                ms to seconds per batch).
   2 = KERNEL  — hand-written CUDA kernels for the hot stages: the
                 compaction (csrc/compact.cu, the JAX package's Pallas
                 kernel); a TORCH cap runs its plain version instead
@@ -42,6 +43,8 @@ _TIER_NAMES = {"HOST": TIER_HOST, "TORCH": TIER_TORCH, "KERNEL": TIER_KERNEL,
                # the reference's ISA names
                "SSE2": TIER_HOST, "AVX": TIER_TORCH, "AVX2": TIER_KERNEL,
                "AVX512": TIER_MULTI}
+
+TIER_LABELS = {v: k for k, v in list(_TIER_NAMES.items())[:4]}
 
 
 def max_tier_from_env(default: int = TIER_MULTI) -> int:

@@ -75,6 +75,11 @@ def resolve_with_tier(codec: str, op: str, max_tier: Optional[int] = None,
     return fn, tier
 
 
+def registered_tiers(codec: str, op: str):
+    """The tiers, sorted, that this registry holds for (codec, op)."""
+    return sorted(_registry.get((codec, op), {}))
+
+
 def resolve_host(codec: str, op: str) -> Callable:
     """The host-tier variant of `codec`'s `op`, resolved so the audit
     records the route: the device tiers take their format routes (blocks

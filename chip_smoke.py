@@ -7,8 +7,8 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero before the last line:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build: nvcc for every CUDA source (compact.cu, zstd_scan.cu,
-     inflate_scan.cu) and the host C++ library, started together (ptxas's
-     registers and shared memory of every kernel);
+     inflate_scan.cu, entropy_scan.cu) and the host C++ library, started
+     together (ptxas's registers and shared memory of every kernel);
   3. every kernel against its plain PyTorch version, output for output:
      compact_rows (layout scan + bulk copy) at the main path's shapes
      (N=256 chunks of OUTCAP=65536, sizes from a real encode), at every
@@ -47,8 +47,16 @@ non-zero before the last line:
      stage times;
   9. zlib: setup("zlib", level=1|2, opt_var=2) likewise, each stream read
      by stdlib zlib.decompress after skip_rap_frame, the host deflate at
-     levels 1 and 6 timed on the same corpus, and the launches and device
-     time of the dynamic path's _kraft_lengths; then device inflate
+     levels 1 and 6 timed on the same corpus, the kraft_absorb kernel's
+     launches in the level-2 calls, and the launches and device time of
+     the dynamic path's two _kraft_lengths calls (the kernel path); the
+     kernel kraft_absorb (csrc/entropy_scan.cu) against its plain loop on
+     the whole batch's real 288- and 32-symbol inputs and on seeded
+     adversarial rows (no symbol, one, all present, all-equal counts, a
+     65,536-count symbol whose share wraps negative, two 70,000-count
+     symbols, a Kraft sum past 1), its graph-replay time, HBM bound,
+     serial steps, µs and SM cycles per step and serial floor; then device
+     inflate
      (set_config(device_decode=True)) of both streams through the API:
      exact, audited, the inflate kernel's launches, the chunks on each
      route (card, planner reject, multi-block), lanes per launch, MB/s
@@ -60,7 +68,8 @@ non-zero before the last line:
      µs and SM cycles per step (the clock read by nvidia-smi while it
      runs) and the serial floor (FLOOR_CYCLES_PER_STEP a step);
  10. zstd: setup("zstd", level=1, opt_var=2) on the same corpus (3
-     calls): audit, the compaction's and the FSE scan kernel's launches,
+     calls): audit, the compaction's, the FSE scan kernel's and the two
+     entropy-table kernels' (kraft_absorb, weights_fse_encode) launches,
      ratio and MB/s beside the host tier's at level 1, peak memory, the
      16-block stream's sha256 against the JAX package's, per-stage device
      times; device decode through the API (exact, audited, the two decode
@@ -73,7 +82,12 @@ non-zero before the last line:
      batch made from those 16 blocks (corrupt streams and sections, edge
      counts and lengths, codes, table logs and table values outside their
      ranges; phase 3 holds the compaction at the zstd shapes 1,024 x
-     23,040 and 256 x 82,432);
+     23,040 and 256 x 82,432); kraft_absorb at 256 symbols and
+     weights_fse_encode against their plain loops on the whole batch's
+     real inputs and on seeded adversarial rows (literal rows with no
+     literal, one, one symbol, all 256, 64 equal counts, a Kraft sum past
+     1; weights all 0, all 11, alternating, a ramp, random), with their
+     times, bounds and serial floors as in phase 9;
  11. bzip2 and lzma on the same corpus: setup("bzip2", level=9) (host)
      beside setup("bzip2", level=9, opt_var=2) (the device block sort),
      setup("lzma", level=6) (host) beside setup("lzma", level=6,
@@ -107,15 +121,18 @@ non-zero before the last line:
      launches a shard, MB/s and peak memory beside the single-device tier
      in turns); snappy, zlib 1 and 2 and zstd 1 through their *_multi
      variants on four virtual shards (each stream equal to its phase's,
-     MB/s beside the single-device variant in turns, fse_encode_scan once
-     a zstd shard); the lz4 MULTI decoder on four virtual shards (exact,
-     MB/s likewise); compress_blocks_distributed in a single-rank NCCL
-     group over a 1 x 4 host-chip mesh (tables and totals equal phase
-     4's); dryrun_multichip(4) on four virtual shards;
+     MB/s beside the single-device variant in turns, fse_encode_scan,
+     kraft_absorb and weights_fse_encode once a zstd shard, kraft_absorb
+     twice a zlib-2 shard); the lz4 MULTI decoder on four virtual shards
+     (exact, MB/s likewise); compress_blocks_distributed in a single-rank
+     NCCL group over a 1 x 4 host-chip mesh (tables and totals equal
+     phase 4's); dryrun_multichip(4) on four virtual shards;
  14. one JSON line listing every ported kernel: compact_rows with its
      launches summed over the paths of phases 4, 6-10, 12 and 13, the zstd
      scan kernels with theirs in phases 10 and 13, inflate_symbol_scan with
-     its own in phase 9;
+     its own in phase 9, kraft_absorb with its launches in phases 9, 10
+     and 13 (its times at zlib 2's 288-symbol call) and weights_fse_encode
+     with its own in phases 10 and 13;
  15. last line: {"ok": true, "device": {...}}.
 """
 
@@ -256,7 +273,8 @@ def phase_card():
 
 
 def phase_build():
-    from aocl_compression_tpu_torch.ops import compact, inflate_scan, zstd_scan
+    from aocl_compression_tpu_torch.ops import (compact, entropy_scan,
+                                                inflate_scan, zstd_scan)
     from aocl_compression_tpu_torch.runtime import native
 
     def timed(fn):
@@ -264,17 +282,19 @@ def phase_build():
         fn()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
         nvcc = ex.submit(timed, compact.build)
         scan = ex.submit(timed, zstd_scan.build)
         inf = ex.submit(timed, inflate_scan.build)
+        ent = ex.submit(timed, entropy_scan.build)
         host = ex.submit(timed, native.get_lib)
         print(f"[build] nvcc csrc/compact.cu (sm_90a): {nvcc.result():.2f} s; "
               f"nvcc csrc/zstd_scan.cu (sm_90a): {scan.result():.2f} s; "
               f"nvcc csrc/inflate_scan.cu (sm_90a): {inf.result():.2f} s; "
+              f"nvcc csrc/entropy_scan.cu (sm_90a): {ent.result():.2f} s; "
               f"host library (make -C csrc): {host.result():.2f} s")
     for log in (compact.build_log, zstd_scan.build_log,
-                inflate_scan.build_log):
+                inflate_scan.build_log, entropy_scan.build_log):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
@@ -621,20 +641,23 @@ def fmt_stages(stage):
 
 def reset_counts():
     """Every kernel launch count (compact.launches, zstd_scan.launches,
-    inflate_scan.launches) to 0."""
-    from aocl_compression_tpu_torch.ops import compact, inflate_scan, zstd_scan
+    inflate_scan.launches, entropy_scan.launches) to 0."""
+    from aocl_compression_tpu_torch.ops import (compact, entropy_scan,
+                                                inflate_scan, zstd_scan)
     compact.launches = 0
-    for counts in (zstd_scan.launches, inflate_scan.launches):
+    for counts in (zstd_scan.launches, inflate_scan.launches,
+                   entropy_scan.launches):
         for k in counts:
             counts[k] = 0
 
 
 def run_path(label, fn, hits_want, calls=3, per_call=None):
     """fn() `calls` times with the audit on and every kernel count
-    (compact.launches, zstd_scan.launches, inflate_scan.launches) set to 0
-    just before: (last result, best s, compact_rows launches, peak device
-    GB); the scan kernels' counts stay in zstd_scan.launches and
-    inflate_scan.launches for the caller to read. Fails unless every audit
+    (compact.launches, zstd_scan.launches, inflate_scan.launches,
+    entropy_scan.launches) set to 0 just before: (last result, best s,
+    compact_rows launches, peak device GB); the scan kernels' counts stay in
+    zstd_scan.launches, inflate_scan.launches and entropy_scan.launches
+    for the caller to read. Fails unless every audit
     name in hits_want was hit `calls` times (times per_call[name] where
     given)."""
     from aocl_compression_tpu_torch.ops import compact
@@ -907,6 +930,117 @@ def phase_snappy(data: bytes, blocks, dev):
     return launches + dlaunches
 
 
+# --- the entropy-table kernels (csrc/entropy_scan.cu) ----------------------
+
+def check_entropy(tag, label, kernel, plain, args, nbytes, steps):
+    """An entropy-table kernel against its plain loop on the whole batch's
+    real inputs on the card (every output equal), the kernel's graph-replay
+    time, the plain loop's (device events, one call), the HBM bound and the
+    serial floor: dict(max_abs_err, ms, plain_ms, bound_ms, steps, ...)."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = plain(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    err = check_equal(label, list(got), list(want))
+    ms = graph_ms(lambda: kernel(*args))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[{tag}] {label} vs plain on the whole batch's real inputs "
+          f"(N={args[0].shape[0]}): equal on every output; kernel {ms:.4f} "
+          f"ms (CUDA-graph replay), plain loop {plain_ms:.2f} ms (one call, "
+          f"device events), bound {bound:.4f} ms ({nbytes} B at 3.35 TB/s), "
+          f"longest row {steps} serial steps")
+    st = per_step(tag, label, lambda: kernel(*args), ms, steps)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                steps=steps, **st)
+
+
+def kraft_bytes(nbs):
+    """kraft_absorb's bytes: nbs and d0 read, nbs2 and D written."""
+    return 2 * 4 * (nbs.numel() + nbs.shape[0])
+
+
+def kraft_hists(nsym: int, seed: int):
+    """Seeded adversarial (rows, nsym) int32 histograms, as in
+    tests/test_torch_entropy_scan.py: no symbol, one present symbol, two,
+    all present, all-equal counts, a 65,536-count symbol whose share wraps
+    negative in int32, two 70,000-count symbols, (nsym >= 74) counts 2^15
+    .. 2^6 and 64 ones whose Kraft sum passes 1, and random rows."""
+    rng = np.random.default_rng(seed)
+    rows = [np.zeros(nsym), np.eye(nsym)[3] * 5,
+            np.eye(nsym)[0] + np.eye(nsym)[nsym - 1] * 9,
+            rng.integers(1, 3000, nsym), np.full(nsym, 250)]
+    for idx, counts in (([1, 7, nsym - 2], [65536, 3, 1]),
+                        ([0, 5], [70000, 70000])):
+        h = np.zeros(nsym)
+        h[idx] = counts
+        rows.append(h)
+    if nsym >= 74:
+        h = np.zeros(nsym)
+        h[rng.choice(nsym, 74, replace=False)] = (
+            [1 << e for e in range(15, 5, -1)] + [1] * 64)
+        rows.append(h)
+    for _ in range(8):
+        k = rng.integers(2, nsym + 1)
+        h = np.zeros(nsym)
+        h[rng.choice(nsym, k, replace=False)] = rng.integers(
+            1, 4000, k) ** rng.integers(1, 3)
+        rows.append(h)
+    return torch.from_numpy(np.array(rows, np.int32))
+
+
+def lit_rows_adversarial(seed: int = 7, width: int = 4096):
+    """Seeded adversarial literal rows (rows, width) int32 and their counts
+    for _block_huffman, as in tests/test_torch_entropy_scan.py: no literal,
+    one, one symbol repeated, all 256 symbols, 64 equal counts, counts
+    2^11 .. 2^1 and two ones (symbol 255 among them; a Kraft sum past 1),
+    random and skewed rows."""
+    rng = np.random.default_rng(seed)
+    fail = np.concatenate([np.full(1 << e, e) for e in range(11, 0, -1)]
+                          + [[100, 255]])
+    vals = [[], [9], np.full(width, 7),
+            rng.permutation(np.arange(width) % 256), np.arange(width) % 64,
+            rng.permutation(fail), rng.integers(0, 256, width),
+            np.minimum(rng.geometric(0.05, width), 255)]
+    rows = np.zeros((len(vals), width), np.int32)
+    for i, v in enumerate(vals):
+        rows[i, :len(v)] = v
+    n = np.array([len(v) for v in vals], np.int32)
+    return torch.from_numpy(rows), torch.from_numpy(n)
+
+
+def weight_rows_adversarial(real, seed: int = 9):
+    """Seeded adversarial weight rows (rows, 255) int32: the real weights
+    of lit_rows_adversarial's Kraft-exact rows (`real`), all 0, all 11,
+    alternating 0 / 11, a ramp over the 12 symbols, and random rows."""
+    rng = np.random.default_rng(seed)
+    edge = np.array([np.zeros(255), np.full(255, 11),
+                     np.arange(255) % 2 * 11, np.arange(255) % 12])
+    return torch.cat([real, torch.from_numpy(np.concatenate(
+        [edge, rng.integers(0, 12, (8, 255))]).astype(np.int32))])
+
+
+def kraft_adversarial(label, module, run, dev):
+    """kraft_absorb on the card against its plain loop on the CPU, on the
+    (nbs, D) that run() (a CPU call of module's _kraft_lengths or
+    _block_huffman on adversarial rows) gives the absorb; every output
+    equal. Returns the max abs error (0)."""
+    from aocl_compression_tpu_torch.ops import deflate_device as dd
+    (nbs, D, m), = capture(module, "_kraft_absorb", run)
+    got = dd._kraft_absorb(nbs.to(dev), D.to(dev), m)
+    err = check_equal(label, [g.cpu() for g in got],
+                      dd._kraft_absorb_plain(nbs, D, m))
+    nfail = int((~run()[-1]).sum())
+    print(f"[entropy kernel] {label} vs plain on {nbs.shape[0]} seeded "
+          f"adversarial rows ({nfail} with ok False): equal on every output")
+    return err
+
+
 def phase_zlib(data: bytes, blocks, dev):
     """setup("zlib", level=1|2, opt_var=2): the static and the dynamic
     device deflate encoders (G=4, 32 KiB window); decode on the host."""
@@ -916,11 +1050,13 @@ def phase_zlib(data: bytes, blocks, dev):
     from aocl_compression_tpu_torch.codecs.zlib_bzip2_lzma import (
         _device_chunks, _trailer)
     from aocl_compression_tpu_torch.ops import deflate_device as dd
+    from aocl_compression_tpu_torch.ops import entropy_scan
     from aocl_compression_tpu_torch.parallel import container
 
     mb = len(data) / 1e6
     total = 0
     streams = {}
+    kraft_launches = 0
     stages = {1: ("start", "h2d", "find_matches", "grid_parse", "emit",
                   "compaction", "meta_d2h"),
               2: ("start", "h2d", "find_matches", "grid_parse", "histograms",
@@ -936,6 +1072,11 @@ def phase_zlib(data: bytes, blocks, dev):
         if launches != 2 * 3:
             raise AssertionError(f"{label}: compact_rows did not launch its "
                                  f"two kernels once per compress call")
+        kraft = entropy_scan.launches["kraft_absorb"]
+        if kraft != (2 * 3 if level == 2 else 0):
+            raise AssertionError(f"{label}: kraft_absorb launched {kraft} "
+                                 f"times in 3 calls")
+        kraft_launches += kraft
         total += launches
         d, d_s = best_s(lambda: act.decompress(h, c))
         if d != data:
@@ -949,7 +1090,8 @@ def phase_zlib(data: bytes, blocks, dev):
               f"{len(data) / len(c):.4f}; compress {mb / c_s:.2f} MB/s (best "
               f"of 3, {c_s * 1e3:.2f} ms); host decode {mb / d_s:.2f} MB/s; "
               f"round trip exact, stdlib zlib reads it after skip_rap_frame; "
-              f"peak device memory {peak_gb:.2f} GB")
+              f"peak device memory {peak_gb:.2f} GB; kraft_absorb launches "
+              f"in 3 calls: {kraft}")
         check_pinned(label, act.compress(h, data[:PINNED_BLOCKS * B]))
         streams[level] = STREAMS[label] = c
         stage, stream = staged(
@@ -978,20 +1120,40 @@ def phase_zlib(data: bytes, blocks, dev):
               f"{len(data) / len(ch):.4f}, {mb / ch_s:.2f} MB/s (best of 2)")
 
     # the launches and device time of the dynamic path's two
-    # _kraft_lengths calls, on the corpus blocks' byte histograms
-    arr = torch.from_numpy(np.frombuffer(data, np.uint8).reshape(N, B)
-                           .astype(np.int64)).to(dev)
-    hist = torch.zeros((N, 288), dtype=torch.int32, device=dev)
-    hist.scatter_add_(1, arr, torch.ones_like(arr, dtype=torch.int32))
-    hist[:, 256] += 1
-    hd = torch.ones((N, 32), dtype=torch.int32, device=dev)
-    ops = device_ops(lambda: (dd._kraft_lengths(hist, 288),
-                              dd._kraft_lengths(hd, 32)))[0].values()
-    print(f"[zlib2] _kraft_lengths for 288 + 32 symbols (N={N}): "
-          f"{sum(c for c, _ in ops)} device launches, "
-          f"{sum(us for _, us in ops) / 1e3:.3f} ms device time (profiler)")
+    # _kraft_lengths calls (the kernel path), on the histograms the dynamic
+    # encoder builds from the corpus
+    arr8 = torch.from_numpy(np.frombuffer(data, np.uint8).reshape(N, B)
+                            .copy()).to(dev)
+    lens = torch.full((N,), B, dtype=torch.int32, device=dev)
+    enc = dd.make_encoder_dyn(B, 4)
+    h288, h32 = capture(dd, "_kraft_lengths", lambda: enc(arr8, lens))
+    kl = lambda: (dd._kraft_lengths(*h288),  # noqa: E731
+                  dd._kraft_lengths(*h32))
+    ops = device_ops(kl)[0].values()
+    kl_ms = wall_ms(kl)
+    print(f"[zlib2] _kraft_lengths for 288 + 32 symbols (N={N}; the kernel "
+          f"path): {sum(c for c, _ in ops)} device launches, "
+          f"{sum(us for _, us in ops) / 1e3:.3f} ms device time (profiler), "
+          f"{kl_ms:.3f} ms host clock with a synchronise (best of 20)")
+
+    # the kernel kraft_absorb against its plain loop: the whole batch's
+    # real absorb inputs of the dynamic encoder (288 and 32 symbols), then
+    # seeded adversarial rows
+    a288, a32 = capture(dd, "_kraft_absorb", lambda: enc(arr8, lens))
+    del arr8
+    kraft = {}
+    for nsym, a in ((288, a288), (32, a32)):
+        kraft[nsym] = check_entropy(
+            "entropy kernel", f"kraft_absorb at {nsym} symbols",
+            dd._kraft_absorb, dd._kraft_absorb_plain, a, kraft_bytes(a[0]),
+            nsym)
+        err = kraft_adversarial(
+            f"kraft_absorb at {nsym} symbols", dd,
+            lambda: dd._kraft_lengths(kraft_hists(nsym, nsym), nsym), dev)
+        kraft[nsym]["max_abs_err"] = max(kraft[nsym]["max_abs_err"], err)
+    kraft[288]["launches"] = kraft_launches
     dlaunches, inflate = phase_inflate(data, streams, dev)
-    return total, dlaunches, inflate
+    return total, dlaunches, inflate, kraft
 
 
 INFLATE_SLICE = 8   # lanes the plain scan runs on (it launches per step)
@@ -1405,6 +1567,9 @@ def phase_zstd(data: bytes, blocks, dev):
     import aocl_compression_tpu_torch as act
     from aocl_compression_tpu_torch.codecs.zstd import (_device_frames,
                                                         _host_decode)
+    from aocl_compression_tpu_torch.ops import entropy_scan
+    from aocl_compression_tpu_torch.ops.deflate_device import (
+        _kraft_absorb_plain)
     from aocl_compression_tpu_torch.ops import zstd_decode_device as zdd
     from aocl_compression_tpu_torch.ops import zstd_device as zd
     from aocl_compression_tpu_torch.ops import zstd_scan
@@ -1418,9 +1583,12 @@ def phase_zstd(data: bytes, blocks, dev):
         ("zstd_compress_blocks_multi", "fetch_chunks_kernel"),
         per_call={"fetch_chunks_kernel": 2})
     enc = dict(zstd_scan.launches)
-    if launches != 2 * 2 * 3 or enc["fse_encode_scan"] != 3:
-        raise AssertionError("zstd: the compaction (2 fetches) or the FSE "
-                             "scan kernel did not launch once per call")
+    ent = dict(entropy_scan.launches)
+    if (launches != 2 * 2 * 3 or enc["fse_encode_scan"] != 3
+            or ent != {"kraft_absorb": 3, "weights_fse_encode": 3}):
+        raise AssertionError(f"zstd: the compaction (2 fetches), the FSE "
+                             f"scan kernel or the entropy-table kernels "
+                             f"({ent}) did not launch once per call")
     d, d_s = best_s(lambda: act.decompress(h, c))
     if d != data or native.zstd_decompress(c) != data:
         raise AssertionError("zstd: host decode did not return the input")
@@ -1434,7 +1602,9 @@ def phase_zstd(data: bytes, blocks, dev):
           f"ms); host decode {mb / d_s:.2f} MB/s; round trip exact through "
           f"the API and the host decoder; peak device memory {peak_gb:.2f} "
           f"GB; kernel launches in 3 calls: compact_rows {launches}, "
-          f"fse_encode_scan {enc['fse_encode_scan']}")
+          f"fse_encode_scan {enc['fse_encode_scan']}, kraft_absorb "
+          f"{ent['kraft_absorb']}, weights_fse_encode "
+          f"{ent['weights_fse_encode']}")
     check_pinned("zstd level 1", act.compress(h, data[:PINNED_BLOCKS * B]))
     STREAMS["zstd level 1"] = c
 
@@ -1577,7 +1747,43 @@ def phase_zstd(data: bytes, blocks, dev):
           f"bits): equal on every slot below each lane's count")
     for name in stats:
         stats[name]["launches"] = enc.get(name, 0) + dec.get(name, 0)
-    return launches + dlaunches, stats
+
+    # the entropy-table kernels on the batch's real inputs (the encoder's
+    # absorb at 256 symbols and its weight rows), then seeded adversarial
+    # rows
+    def encode():
+        return zd.encode_blocks(blocks, 1, device=dev)
+
+    kargs = capture(zd, "_kraft_absorb", encode)[0]
+    wargs = capture(zd, "_encode_weights", encode)[0]
+    n_ = wargs[0].shape[0]
+    entropy = {
+        "kraft_absorb": check_entropy(
+            "entropy kernel", "kraft_absorb at 256 symbols",
+            zd._kraft_absorb, _kraft_absorb_plain, kargs,
+            kraft_bytes(kargs[0]), 256),
+        "weights_fse_encode": check_entropy(
+            "entropy kernel", "weights_fse_encode", zd._encode_weights,
+            zd._encode_weights_plain, wargs,
+            n_ * (255 * 4 + entropy_scan.WCAP + 4) + (64 + 2 * 12) * 4,
+            255)}
+    lits, nl = lit_rows_adversarial()
+    err = kraft_adversarial("kraft_absorb at 256 symbols", zd,
+                            lambda: zd._block_huffman(lits, nl), dev)
+    entropy["kraft_absorb"]["max_abs_err"] = max(
+        entropy["kraft_absorb"]["max_abs_err"], err)
+    _, _, w, ok = zd._block_huffman(lits, nl)
+    wadv = weight_rows_adversarial(w[ok])
+    got = zd._encode_weights(wadv.to(dev))
+    check_equal("weights_fse_encode (adversarial rows)",
+                [g.cpu() for g in got], zd._encode_weights_plain(wadv))
+    print(f"[entropy kernel] weights_fse_encode vs plain on "
+          f"{wadv.shape[0]} seeded adversarial rows (the weights of the "
+          f"adversarial literal rows, all 0, all 11, alternating 0 / 11, a "
+          f"ramp, random): equal on every output")
+    for name in entropy:
+        entropy[name]["launches"] = ent[name]
+    return launches + dlaunches, stats, entropy
 
 
 def counted(label, fn, hits_want):
@@ -1860,9 +2066,10 @@ def in_turns(single, multi):
     """single() and multi() once each to warm up, then in turns A B B A,
     one call each (host clock); the first multi() runs with the audit on
     and every kernel count set to 0 just before: (its result, {"single":
-    [s, s], "multi": [s, s]}, audit hits, compact_rows launches,
-    fse_encode_scan launches)."""
-    from aocl_compression_tpu_torch.ops import compact, zstd_scan
+    [s, s], "multi": [s, s]}, audit hits, compact_rows launches, the scan
+    kernels' launches {name: n})."""
+    from aocl_compression_tpu_torch.ops import (compact, entropy_scan,
+                                                zstd_scan)
     from aocl_compression_tpu_torch.utils import dispatch
     single()
     multi()
@@ -1875,10 +2082,11 @@ def in_turns(single, multi):
         hits = dispatch.audit_hits()
     finally:
         dispatch.enable_audit(False)
-    n, fse = compact.launches, zstd_scan.launches["fse_encode_scan"]
+    n, scans = compact.launches, dict(zstd_scan.launches,
+                                      **entropy_scan.launches)
     times["multi"] = [t, best_s(multi, 1)[1]]
     times["single"].append(best_s(single, 1)[1])
-    return res, times, hits, n, fse
+    return res, times, hits, n, scans
 
 
 def fmt_turns(mb, times):
@@ -1895,7 +2103,8 @@ def phase_multi(data: bytes, blocks, dev):
     compress_blocks_distributed in a single-rank NCCL group over a 1 x 4
     host-chip mesh, and dryrun_multichip(4). Every output is held to the
     single-device tier's (phases 4 and 8-10). Returns ({path: compact_rows
-    launches}, fse_encode_scan launches)."""
+    launches}, {kernel: launches} of fse_encode_scan, kraft_absorb and
+    weights_fse_encode)."""
     import tempfile
 
     import torch.distributed as dist
@@ -1985,7 +2194,14 @@ def phase_multi(data: bytes, blocks, dev):
         "zlib level 2": lambda r: rap_stream(r[0], r[1], ZLIB_HEADER)
         + _trailer(data),
         "zstd level 1": lambda r: rap_zstd(r[0], blocks)}
-    fse = 0
+    # each path's launches of the encoders' scan kernels, 4 shards
+    scans_want = {
+        "snappy": {}, "zlib level 1": {},
+        "zlib level 2": {"kraft_absorb": 8},
+        "zstd level 1": {"fse_encode_scan": 4, "kraft_absorb": 4,
+                         "weights_fse_encode": 4}}
+    counted = dict.fromkeys(("fse_encode_scan", "kraft_absorb",
+                             "weights_fse_encode"), 0)
     for label, (method, kw) in PINNED_CALLS.items():
         if label not in finish:
             continue
@@ -1996,7 +2212,12 @@ def phase_multi(data: bytes, blocks, dev):
                 *args),
             lambda: dispatch.resolve(method, "compress_blocks", TIER_MULTI)(
                 *args, num_shards=4, devices=devices))
-        fse += nf
+        got_scans = {k: nf[k] for k in counted if nf[k]}
+        if got_scans != scans_want[label]:
+            raise AssertionError(f"multi {label}: scan kernel launches "
+                                 f"{got_scans}, want {scans_want[label]}")
+        for k in got_scans:
+            counted[k] += got_scans[k]
         want_n = 2 * 4 * (2 if method == "zstd" else 1)
         stream = finish[label](r)
         if stream != STREAMS[label]:
@@ -2010,11 +2231,7 @@ def phase_multi(data: bytes, blocks, dev):
               f"4 virtual shards): {len(stream)} B, equal to its phase's "
               f"stream; " + fmt_turns(mb, times) + f"; audit "
               f"{json.dumps(hits, sort_keys=True)}; compact_rows launches "
-              f"{n}" + (f", fse_encode_scan {nf}" if method == "zstd"
-                        else ""))
-    if fse != 4:
-        raise AssertionError("multi zstd: fse_encode_scan did not launch "
-                             "once a shard")
+              f"{n}" + "".join(f", {k} {v}" for k, v in got_scans.items()))
 
     # 4. the lz4 decoder over 4 virtual shards (the variant device decode
     # resolves), on phase 4's stream, beside the single-device decoder
@@ -2075,7 +2292,7 @@ def phase_multi(data: bytes, blocks, dev):
     reset_counts()
     dryrun.dryrun_multichip(4, devices=devices)
     paths["multi: dryrun_multichip(4)"] = compact.launches
-    return paths, fse
+    return paths, counted
 
 
 def rap_zstd(frames, blocks):
@@ -2149,15 +2366,25 @@ def main():
         data, {"lz4": c_lz4, "lz4hc": c_hc}, dev)
     paths["snappy encode + device decode"] = phase_snappy(data, blocks, dev)
     (paths["zlib levels 1 and 2"], paths["zlib device inflate"],
-     inflate) = phase_zlib(data, blocks, dev)
-    paths["zstd level 1 encode + device decode"], scans = phase_zstd(
-        data, blocks, dev)
+     inflate, kraft) = phase_zlib(data, blocks, dev)
+    (paths["zstd level 1 encode + device decode"], scans,
+     entropy) = phase_zstd(data, blocks, dev)
     phase_bzip2_lzma(data, dev)
     surface, frame_err = phase_surface(data, dev)
     paths.update(surface)
-    multi, fse_multi = phase_multi(data, blocks, dev)
+    multi, scans_multi = phase_multi(data, blocks, dev)
     paths.update(multi)
-    scans["fse_encode_scan"]["launches"] += fse_multi
+    scans["fse_encode_scan"]["launches"] += scans_multi["fse_encode_scan"]
+    # kraft_absorb's entry: its times at zlib 2's 288-symbol call, its
+    # launches and error over every path and shape
+    entropy["kraft_absorb"] = dict(
+        kraft[288], max_abs_err=max(kraft[288]["max_abs_err"],
+                                    kraft[32]["max_abs_err"],
+                                    entropy["kraft_absorb"]["max_abs_err"]),
+        launches=kraft[288]["launches"] + entropy["kraft_absorb"]["launches"]
+        + scans_multi["kraft_absorb"])
+    entropy["weights_fse_encode"]["launches"] += \
+        scans_multi["weights_fse_encode"]
     kernel["max_abs_err"] = max(kernel["max_abs_err"], frame_err)
     print("[paths] compact_rows launches: " + ", ".join(
         f"{k} {v}" for k, v in paths.items()))
@@ -2188,6 +2415,18 @@ def main():
         launches=inflate["launches"], max_abs_err=inflate["max_abs_err"],
         ms=inflate["ms"], plain_ms=inflate["plain_ms"],
         bound_ms=inflate["bound_ms"], bound_by="bytes", library_ms=None))
+    replaces = {
+        "kraft_absorb": "aocl_compression_tpu/ops/deflate_device.py:229, "
+                        "aocl_compression_tpu/ops/zstd_device.py:115",
+        "weights_fse_encode": "aocl_compression_tpu/ops/zstd_device.py:166"}
+    for name, st in entropy.items():
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aocl_compression_tpu_torch/csrc/entropy_scan.cu",
+            replaces=replaces[name], launches=st["launches"],
+            max_abs_err=st["max_abs_err"], ms=st["ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by="bytes", library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

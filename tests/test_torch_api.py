@@ -363,6 +363,41 @@ def test_calibrated_dispatch_policy(monkeypatch):
     assert tdispatch.resolve_with_tier("zlib", "compress_blocks")[1] == 3
 
 
+def test_registered_tiers_match_jax():
+    """With every codec module of both packages imported, the port's
+    registry holds the JAX package's tiers for each (codec, op) the JAX
+    package registers; the port's own pairs (routes the JAX package takes
+    inside its codecs) list their registry keys."""
+    import importlib
+    import pkgutil
+
+    import aocl_compression_tpu.codecs as jcodecs
+    import aocl_compression_tpu_torch.codecs as tcodecs
+    for pkg in (jcodecs, tcodecs):
+        for m in pkgutil.iter_modules(pkg.__path__):
+            importlib.import_module(f"{pkg.__name__}.{m.name}")
+    for key in jdispatch._registry:
+        assert tdispatch.registered_tiers(*key) == \
+            jdispatch.registered_tiers(*key), key
+    for key, impls in tdispatch._registry.items():
+        assert tdispatch.registered_tiers(*key) == sorted(impls)
+    assert tdispatch.registered_tiers("lz4", "compress_blocks") == [0, 1, 3]
+    assert tdispatch.registered_tiers("nocodec", "compress") == []
+
+
+def test_tier_labels_match_jax():
+    """TIER_LABELS names the four tiers, as the JAX package's does; the
+    JAX package's names map onto the same numbers."""
+    from aocl_compression_tpu.utils import config as jconfig
+    from aocl_compression_tpu_torch.utils import config as tconfig
+    assert tconfig.TIER_LABELS == {0: "HOST", 1: "TORCH", 2: "KERNEL",
+                                   3: "MULTI"}
+    assert sorted(tconfig.TIER_LABELS) == sorted(jconfig.TIER_LABELS)
+    for tier, name in jconfig.TIER_LABELS.items():
+        assert tconfig._TIER_NAMES[name] == tier
+        assert tconfig._TIER_NAMES[tconfig.TIER_LABELS[tier]] == tier
+
+
 def test_snappy_device_decode_round_trip(device_tier, monkeypatch):
     """AOCL_DEVICE_DECODE=1 routes snappy RAP decode to the port's device
     decoder and zlib RAP decode to the device inflate (audited)."""

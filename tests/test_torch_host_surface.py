@@ -203,6 +203,17 @@ def test_frame_host_tier_matches_jax(opts):
     assert tframe.decompress_frame(got) == DATA
 
 
+@pytest.mark.parametrize("kw", [{}, dict(max_tier=TIER_TORCH),
+                                dict(max_tier=0, opt_off=True),
+                                dict(opt_off=False)])
+def test_decompress_frame_takes_jax_arguments(kw):
+    """decompress_frame takes the JAX package's max_tier and opt_off and
+    decodes on the host whatever they are, as the JAX function does."""
+    frame = jframe.compress_frame(DATA, block_checksum=True)
+    assert tframe.decompress_frame(frame, **kw) == \
+        jframe.decompress_frame(frame, **kw) == DATA
+
+
 def test_frame_decodes_linked_blocks():
     """A linked-block frame (CompressStream("lz4")) decodes through the
     port's decompress_frame, carrying the 64 KiB history."""

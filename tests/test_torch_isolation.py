@@ -25,7 +25,8 @@ sys.meta_path.insert(0, Blocker())
 import aocl_compression_tpu_torch as act
 from aocl_compression_tpu_torch.ops import (bwt_device,  # noqa
                                             compact, deflate_device,
-                                            inflate_device, inflate_scan,
+                                            entropy_scan, inflate_device,
+                                            inflate_scan,
                                             lz4_device, lzma_assist,
                                             snappy_device,
                                             zstd_decode_device, zstd_device,

@@ -62,18 +62,33 @@ def test_cli_sizes_match_jax(sample, capsys, mode):
     assert all(r["verify"] == "OK" for r in got)
 
 
+class _Clock:
+    """A perf_counter that advances a fixed step a call."""
+
+    def __init__(self, step: float):
+        self.t, self.step = 0.0, step
+
+    def perf_counter(self) -> float:
+        self.t += self.step
+        return self.t
+
+
 def test_cli_device_run_matches_jax(sample, capsys, monkeypatch, tmp_path):
     """-e lz4:0:2 runs the device tier (here on the CPU) with the JAX
-    package's sizes at its device tier; -d dumps the stream."""
+    package's sizes at its device tier; -d dumps the stream. The CLI's
+    clock advances 10 ms a reading, so each timed call takes 10 ms and the
+    speeds are the sample's 24,000 B over 10 ms, whatever the load."""
     from aocl_compression_tpu.tools import bench_cli as jcli
     monkeypatch.setenv("AOCL_ENABLE_INSTRUCTIONS", "XLA")
+    monkeypatch.setattr(bench_cli, "time", _Clock(0.01))
     dump = str(tmp_path / "dump.lz4")
     argv = ["-e", "lz4:0:2", "-b", "4096", "-t", "-p", "-i", "1", "--json"]
     got = _json_runs(bench_cli.main,
                      argv + ["--device", "cpu", "-d", dump, sample], capsys)
     want = _json_runs(jcli.main, argv + [sample], capsys)
     assert _sizes(got) == _sizes(want)
-    assert got[0]["verify"] == "OK" and got[0]["c_speed_mbps"] > 0
+    assert got[0]["verify"] == "OK"
+    assert got[0]["c_speed_mbps"] == got[0]["d_speed_mbps"] == 2.4
     assert os.path.getsize(dump) == got[0]["c_bytes"]
 
 
