@@ -18,15 +18,17 @@ Encode (per block, batched):
                       4 get exact run lengths by a reverse cummin, and the
                       saturated-match ladder extends matches past the cap.
   3. parse          — one candidate per G-byte tile; the greedy tile chain is
-                      marked by boolean reachability, computed by batched
-                      matrix squarings of 0/1 adjacency matrices.
+                      marked by reachability inside sub-chains of SUBM
+                      tiles (_reach_from_start: the kernel subchain_reach
+                      on the card, matrix squarings on the CPU).
   4. emission       — every output byte is sourced from the input byte
                       domain; per-byte fields come from cummax/cummin fills
                       on the tile domain and one sort of (out_pos<<8 | byte)
                       materializes the stream.
 
 Exact parse (G = 0, accel <= 1; the lz4hc device tier): the serial greedy
-chain on the byte domain (_greedy_parse, marked by _chain_marks), the
+chain on the byte domain (_greedy_parse, marked by _chain_marks: the
+kernel chain_marks on the card, matrix squarings on the CPU), the
 selected sequences squeezed to MAXSEQ entries (_select_sequences), and the
 fill + gather serializer (_emit) into rows of out_capacity(B) bytes.
 
@@ -279,10 +281,36 @@ def _closure(A: torch.Tensor, rounds: int) -> torch.Tensor:
     return A
 
 
-def _reach_from_start(A: torch.Tensor, rounds: int) -> torch.Tensor:
-    """Row 0 of the boolean closure of the (S, SUBM, SUBM) 0/1 matrices A
-    after `rounds` squarings."""
-    return _closure(A.to(_mat_dtype(A.device)), rounds)[:, 0, :] > 0
+def _reach_from_start(nxt: torch.Tensor, SUBM: int) -> torch.Tensor:
+    """reach (N, M) bool for nxt (N, M) int32 on the tile domain, cut into
+    sub-chains of SUBM tiles: tile t is reachable from its sub-chain's
+    local 0 by the edges p -> nxt[p] that stay inside the sub-chain (0 <=
+    nxt[p] - base < SUBM; exits and negative targets have none). It is
+    row 0 of the JAX package's closure (lz4_device.py:352, :516). A CUDA
+    tensor runs the kernel subchain_reach (csrc/chain_scan.cu), a CPU
+    tensor the plain version."""
+    if nxt.is_cuda:
+        from . import chain_scan
+        return chain_scan.subchain_reach(nxt.to(_I32).contiguous(), SUBM)
+    if nxt.device.type == "cpu":
+        return _reach_from_start_plain(nxt, SUBM)
+    raise ValueError(f"_reach_from_start: unsupported device {nxt.device}")
+
+
+def _reach_from_start_plain(nxt: torch.Tensor, SUBM: int) -> torch.Tensor:
+    """PyTorch version of subchain_reach: (N*S, SUBM, SUBM) 0/1 adjacency
+    matrices with the identity, ceil(log2(SUBM)) squarings, row 0."""
+    N, M = nxt.shape
+    dev = nxt.device
+    S = M // SUBM
+    aidx = _arange(M, dev)
+    jloc = (nxt - (aidx // SUBM) * SUBM).reshape(N * S, SUBM)
+    cols = _arange(SUBM, dev)
+    edge = jloc[:, :, None] == cols[None, None, :]
+    A = edge | torch.eye(SUBM, dtype=torch.bool, device=dev)[None]
+    rounds = int(np.ceil(np.log2(max(SUBM, 2))))
+    reach = _closure(A.to(_mat_dtype(dev)), rounds)[:, 0, :] > 0
+    return reach.reshape(N, M)
 
 
 def _grid_select(mlen, moff, valid, B: int, G: int, subm: int = 128,
@@ -318,7 +346,6 @@ def _grid_select(mlen, moff, valid, B: int, G: int, subm: int = 128,
     coff = soff[:, ::G]
 
     SUBM = min(M, subm)
-    S = M // SUBM
     sub_end_pos = ((aidx // SUBM) + 1) * (SUBM * G)
     cml = torch.minimum(cml, sub_end_pos - cpos)
     cvalid = cvalid & (cml >= MIN_MATCH)
@@ -326,14 +353,9 @@ def _grid_select(mlen, moff, valid, B: int, G: int, subm: int = 128,
     nxt = _floor_chain_nxt(cpos, cml, cvalid, aidx, shift, M, G,
                            match_cap=match_cap)
 
-    # independent SUBM-anchor sub-chains: the chain-from-start marking is
-    # boolean reachability by repeated squaring (exits have no edge)
-    jloc = (nxt - (aidx // SUBM) * SUBM).reshape(N * S, SUBM)
-    cols = _arange(SUBM, dev)
-    edge = jloc[:, :, None] == cols[None, None, :]
-    A = edge | torch.eye(SUBM, dtype=torch.bool, device=dev)[None]
-    rounds = int(np.ceil(np.log2(max(SUBM, 2))))
-    sel = _reach_from_start(A, rounds).reshape(N, M) & cvalid
+    # independent SUBM-anchor sub-chains, each marked from its local 0
+    # (exits have no edge)
+    sel = _reach_from_start(nxt, SUBM) & cvalid
     return sel, cpos, cml, coff
 
 
@@ -860,18 +882,32 @@ def _token_scan(chunk_u8, clen, C: int):
 
 def _chain_marks(nxt, clen, C: int):
     """Mark the positions visited by the chain p -> nxt[p] from 0, for each
-    row of nxt (N, C) (nxt[p] > p, <= C); positions >= clen are unmarked.
+    row of nxt (N, C) int32 (C a multiple of SEG), as the JAX package's
+    _chain_marks (lz4_device.py:806-859) does; positions >= clen are
+    unmarked. A CUDA tensor runs the kernel chain_marks
+    (csrc/chain_scan.cu), a CPU tensor the plain version."""
+    if nxt.is_cuda:
+        from . import chain_scan
+        return chain_scan.chain_marks(nxt.to(_I32).contiguous(),
+                                      clen.to(_I32).contiguous())
+    if nxt.device.type == "cpu":
+        return _chain_marks_plain(nxt, clen, C)
+    raise ValueError(f"_chain_marks: unsupported device {nxt.device}")
 
-    Two levels, as in the JAX package: 128-byte segments become (128, 128)
-    reachability matrices (7 squarings); the last position reachable from
-    each entry gives the segment's exit, exit[p] = nxt[last]. The JAX
-    package threads the chain through the segment entries with a serial
-    scan over the S segments. Here the exit function F (which always
-    leaves the segment, so the chain visits at most one position per
-    segment) is composed by pointer doubling: with F^(2^j) tabled, the
-    orbit start, F(start), ..., F^(S-1)(start) doubles in length per
-    round, in log2(S) rounds. Each visited position is its segment's
-    entry, and the entry's matrix row is the segment's marks.
+
+def _chain_marks_plain(nxt, clen, C: int):
+    """PyTorch version of chain_marks. Two levels, as in the JAX package:
+    128-byte segments become (128, 128) reachability matrices (7
+    squarings) of the in-segment edges; the largest column reachable from
+    each entry, `last`, gives the segment's exit, nxt[segbase + last]. The
+    JAX package threads the chain through the segments in order with a
+    serial scan: an exit into the same or an earlier segment, or out of
+    [0, C), ends the chain. Here the exit function F is composed by
+    pointer doubling: with F^(2^j) tabled, the orbit start, F(start), ...
+    doubles in length per round, until it holds S positions; it is cut at
+    its first position whose segment is not past the one before. Each
+    position left is its segment's entry, and the entry's matrix row is
+    the segment's marks.
     """
     N = nxt.shape[0]
     dev = nxt.device
@@ -891,21 +927,26 @@ def _chain_marks(nxt, clen, C: int):
     cols = torch.arange(SEG, dtype=R.dtype, device=dev)
     last = torch.amax(R * cols, dim=2).to(i64)          # (N*S, SEG)
     exit_ = torch.gather(nxt.reshape(N * S, SEG).to(i64), 1, last)
+    exit_ = torch.where((exit_ >= 0) & (exit_ < C), exit_, C)
 
     # orbit of the start under F (F(C) = C ends a chain)
     F = torch.cat([exit_.reshape(N, C), torch.full((N, 1), C, dtype=i64,
                                                    device=dev)], dim=1)
     orbit = torch.where(clen > 0, 0, C).to(i64)[:, None]
-    rounds = max(S, 2).bit_length() - 1
+    rounds = max(1, (S - 1).bit_length())   # 2**rounds >= S positions
     for r in range(rounds):
         orbit = torch.cat([orbit, torch.gather(F, 1, orbit)], dim=1)
         if r + 1 < rounds:
             F = torch.gather(F, 1, F)
 
-    # entry of each segment (-1: not visited); position C lands in column S
+    # the in-order scan's chain: the orbit while its segments rise; the
+    # rest, and position C, land in column S
     seg = orbit // SEG
+    rise = torch.cat([torch.ones_like(seg[:, :1]), (seg[:, 1:] > seg[:, :-1])
+                      .to(i64)], dim=1)
+    seg = torch.where(torch.cummin(rise, dim=1).values > 0, seg, S)
     entries = torch.full((N, S + 1), -1, dtype=i64, device=dev)
-    entries.scatter_(1, seg, orbit - seg * SEG)
+    entries.scatter_(1, seg, orbit % SEG)
     entries = entries[:, :S].reshape(N * S)
     rows = R[torch.arange(N * S, device=dev), torch.clamp(entries, 0)]
     mark = (rows > 0) & (entries >= 0)[:, None]

@@ -440,7 +440,9 @@ def _tag_scan(chunk_u8, clen, C: int):
     # forms do not occur for <= 64 KiB blocks; read as the 2-byte form)
     lit_len = torch.where(arg < 60, arg + 1,
                           torch.where(arg == 60, b1 + 1, (b1 | (b2 << 8)) + 1))
-    lit_hdr = torch.where(arg < 60, 1, torch.where(arg == 60, 2, 3))
+    # header bytes 1 (arg < 60), 2 (arg 60) or 3, in int32 like every field
+    # here (a where of two scalars would be int64)
+    lit_hdr = 1 + (arg >= 60).to(_I32) + (arg > 60).to(_I32)
 
     # copy forms
     len1 = ((tag >> 2) & 7) + 4
@@ -453,7 +455,7 @@ def _tag_scan(chunk_u8, clen, C: int):
     is_c2 = typ == 2           # typ 3 (4-byte offset) read as c2-like
     produced = torch.where(is_lit, lit_len, torch.where(is_c1, len1, len2))
     hdr = torch.where(is_lit, lit_hdr,
-                      torch.where(is_c1, 2, torch.where(is_c2, 3, 5)))
+                      torch.where(is_c1, 2, 5 - 2 * is_c2.to(_I32)))
     nxt = torch.where(is_lit, idx + lit_hdr + lit_len, idx + hdr)
     nxt = torch.clamp(nxt, 0, C)
     lit = torch.where(is_lit, lit_len, 0)

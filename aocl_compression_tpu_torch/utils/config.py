@@ -5,10 +5,12 @@ Backend tiers (which implementation of a codec runs), lowest first:
   0 = HOST    — host C++ path (csrc/libaocl_tpu_host.so)
   1 = TORCH   — PyTorch tensor pipeline on the handle's device. The
                 serial-scan kernels (csrc/zstd_scan.cu, csrc/inflate_scan.cu,
-                csrc/entropy_scan.cu) belong to this tier: they replace the
-                JAX package's lax.scans, which are XLA-tier code, and their
-                plain loops cannot serve on the card (launch-bound: tens of
-                ms to seconds per batch).
+                csrc/entropy_scan.cu, csrc/chain_scan.cu) belong to this
+                tier: they replace the JAX package's lax.scans and fori_loops,
+                which are XLA-tier code, and their plain versions cannot
+                serve on the card (launch-bound loops: tens of ms to seconds
+                per batch; the chain marking's matrix squarings: GBs of
+                memory traffic).
   2 = KERNEL  — hand-written CUDA kernels for the hot stages: the
                 compaction (csrc/compact.cu, the JAX package's Pallas
                 kernel); a TORCH cap runs its plain version instead

@@ -7,8 +7,9 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero before the last line:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build: nvcc for every CUDA source (compact.cu, zstd_scan.cu,
-     inflate_scan.cu, entropy_scan.cu) and the host C++ library, started
-     together (ptxas's registers and shared memory of every kernel);
+     inflate_scan.cu, entropy_scan.cu, chain_scan.cu) and the host C++
+     library, started together (ptxas's registers and shared memory of
+     every kernel);
   3. every kernel against its plain PyTorch version, output for output:
      compact_rows (layout scan + bulk copy) at the main path's shapes
      (N=256 chunks of OUTCAP=65536, sizes from a real encode), at every
@@ -27,24 +28,42 @@ non-zero before the last line:
      decompress of a 16.8 MB corpus, exact round trip, serial decode after
      skip_rap_frame, the dispatch audit and the kernels' launch counts, and
      per-stage device times of the same pipeline, the compaction and d2h
-     taken inside the API's own fetch;
+     taken inside the API's own fetch; the kernel subchain_reach
+     (csrc/chain_scan.cu) against its plain version on the encode's real
+     input, its graph-replay time, HBM bound, longest lane's steps, µs and
+     SM cycles per step and serial floor; a profiler window over one
+     _grid_select call (no bmm or gemm) and the peak memory of one
+     _reach_from_start call above the memory in use before it;
   5. the bench encoder config (G=8, depth 5, nw 5, subm 64, lazy 1,
-     ext_passes 5) on the same corpus;
+     ext_passes 5) on the same corpus, and subchain_reach against its
+     plain version on its real input (SUBM 64);
   6. lz4hc: setup("lz4hc", opt_var=2, block_size=65536) at the default
      level 9 (the exact-parse encoder, G=0) on the same corpus: audit,
      launches, exact round trip, serial decode after skip_rap_frame, ratio
      beside the host tier's at level 9, compress MB/s, peak memory and
-     per-stage device times; the launches of one _chain_marks call;
+     per-stage device times; the launches of one _greedy_parse call on
+     the kernel path and of one call of the plain _chain_marks_plain; the
+     kernel chain_marks against its plain version on the real input, with
+     its times, bound, steps and serial floor as in phase 4, a profiler
+     window over one _greedy_parse call (no bmm or gemm) and the peak
+     memory of one _chain_marks call; both chain kernels against their
+     plain versions on seeded adversarial rows (exits
+     back into earlier or the same segment, in-segment back and self edges
+     and cycles, targets below 0 and past C, exits at C, clen 0 and not a
+     multiple of 128);
   7. device decode (set_config(device_decode=True)) of the lz4 and lz4hc
      streams: exact, audited, MB/s beside the host decoder's, peak memory,
      the chunks on each route, resolve passes and per-stage device times;
+     chain_marks against its plain version on the lz4hc batch's real
+     input;
   8. snappy: setup("snappy", opt_var=2) on the same corpus (3 calls):
      audit, launches, ratio and MB/s beside the host tier's, peak memory,
      host round trip, serial snappy_uncompress after skip_rap_frame, the
      16-block stream's sha256 against the JAX package's, per-stage device
      times; then device decode of the stream through the API (exact,
      audited, launches per batch, MB/s beside the host decoder's) and its
-     stage times;
+     stage times; chain_marks against its plain version on the decode
+     batch's real input;
   9. zlib: setup("zlib", level=1|2, opt_var=2) likewise, each stream read
      by stdlib zlib.decompress after skip_rap_frame, the host deflate at
      levels 1 and 6 timed on the same corpus, the kraft_absorb kernel's
@@ -131,8 +150,10 @@ non-zero before the last line:
      launches summed over the paths of phases 4, 6-10, 12 and 13, the zstd
      scan kernels with theirs in phases 10 and 13, inflate_symbol_scan with
      its own in phase 9, kraft_absorb with its launches in phases 9, 10
-     and 13 (its times at zlib 2's 288-symbol call) and weights_fse_encode
-     with its own in phases 10 and 13;
+     and 13 (its times at zlib 2's 288-symbol call), weights_fse_encode
+     with its own in phases 10 and 13, and subchain_reach (its times at the
+     main path's input) and chain_marks (at lz4hc 9's) with their launches
+     summed over every path driven with the counts set to 0;
  15. last line: {"ok": true, "device": {...}}.
 """
 
@@ -273,8 +294,9 @@ def phase_card():
 
 
 def phase_build():
-    from aocl_compression_tpu_torch.ops import (compact, entropy_scan,
-                                                inflate_scan, zstd_scan)
+    from aocl_compression_tpu_torch.ops import (chain_scan, compact,
+                                                entropy_scan, inflate_scan,
+                                                zstd_scan)
     from aocl_compression_tpu_torch.runtime import native
 
     def timed(fn):
@@ -282,19 +304,22 @@ def phase_build():
         fn()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+    with concurrent.futures.ThreadPoolExecutor(6) as ex:
         nvcc = ex.submit(timed, compact.build)
         scan = ex.submit(timed, zstd_scan.build)
         inf = ex.submit(timed, inflate_scan.build)
         ent = ex.submit(timed, entropy_scan.build)
+        chain = ex.submit(timed, chain_scan.build)
         host = ex.submit(timed, native.get_lib)
         print(f"[build] nvcc csrc/compact.cu (sm_90a): {nvcc.result():.2f} s; "
               f"nvcc csrc/zstd_scan.cu (sm_90a): {scan.result():.2f} s; "
               f"nvcc csrc/inflate_scan.cu (sm_90a): {inf.result():.2f} s; "
               f"nvcc csrc/entropy_scan.cu (sm_90a): {ent.result():.2f} s; "
+              f"nvcc csrc/chain_scan.cu (sm_90a): {chain.result():.2f} s; "
               f"host library (make -C csrc): {host.result():.2f} s")
     for log in (compact.build_log, zstd_scan.build_log,
-                inflate_scan.build_log, entropy_scan.build_log):
+                inflate_scan.build_log, entropy_scan.build_log,
+                chain_scan.build_log):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
@@ -524,12 +549,195 @@ def phase_kernel(out, sizes, slices):
                 bound_ms=bound_ms, library_ms=library_ms)
 
 
-def phase_main(data: bytes, blocks, dev):
+# --- the chain-marking kernels (csrc/chain_scan.cu) --------------------------
+
+# kernel name -> the dict of its first check on real inputs (the kernels
+# line's times: subchain_reach at the main path's input, chain_marks at
+# lz4hc 9's), with the largest error of all its checks
+CHAIN = {}
+
+
+def chain_result(name, res):
+    if name in CHAIN:
+        CHAIN[name]["max_abs_err"] = max(CHAIN[name]["max_abs_err"],
+                                         res["max_abs_err"])
+    else:
+        CHAIN[name] = res
+
+
+def reach_steps(reach, subm):
+    """subchain_reach's longest lane: the most tiles one sub-chain reaches,
+    one step of its walk each."""
+    return int(reach.reshape(-1, subm).sum(1).max())
+
+
+def marks_steps(mark):
+    """chain_marks' longest lane, from a row's marks: for each 32,768-
+    position window the chain enters, the 128-step sweep, one threading
+    step a segment entered and the longest walk from an entry (the most
+    marks one segment holds)."""
+    segs = mark.reshape(mark.shape[0], -1, 128).sum(2)
+    total = torch.zeros(mark.shape[0], dtype=torch.int64, device=mark.device)
+    for w in range(0, segs.shape[1], 256):
+        ps = segs[:, w:w + 256]
+        entered = (ps > 0).sum(1)
+        total += torch.where(entered > 0, 128 + entered + ps.max(1).values, 0)
+    return int(total.max())
+
+
+def check_reach(label, nxt, subm):
+    """subchain_reach against its plain version on a batch's real input:
+    bytes = nxt read once, reach written once."""
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    steps = reach_steps(ld._reach_from_start(nxt, subm), subm)
+    res = check_rows("chain kernel", f"subchain_reach ({label})",
+                     lambda *a: (ld._reach_from_start(*a),),
+                     lambda *a: (ld._reach_from_start_plain(*a),),
+                     (nxt, subm), 5 * nxt.numel(), steps)
+    chain_result("subchain_reach", res)
+    return res
+
+
+def check_marks(label, nxt, clen, C):
+    """chain_marks against its plain version on a batch's real input:
+    bytes = nxt and clen read once, mark written once."""
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    steps = marks_steps(ld._chain_marks(nxt, clen, C))
+    res = check_rows("chain kernel", f"chain_marks ({label})",
+                     lambda *a: (ld._chain_marks(*a),),
+                     lambda *a: (ld._chain_marks_plain(*a),),
+                     (nxt, clen, C), 5 * nxt.numel() + 4 * clen.numel(),
+                     steps)
+    chain_result("chain_marks", res)
+    return res
+
+
+def chain_window(label, fn, mem_label, mem_fn, matrices_bytes):
+    """A profiler window over one fn() call (none of its device ops a bmm
+    or gemm; fn is the caller of a chain kernel with torch ops of its own,
+    since a window holding a lone ctypes launch comes back empty more often
+    than not), and the peak device memory of one mem_fn() call (the
+    kernel's caller) above the memory in use before it, which must stay
+    below one fp16 copy of the reachability matrices the plain version
+    builds (matrices_bytes)."""
+    ops, lost = device_ops(fn)
+    mm = [k for k in ops if "gemm" in k.lower() or "bmm" in k.lower()]
+    ours = [k for k in ops if "chain_marks_kernel" in k
+            or "subchain_reach_kernel" in k]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mem_fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    print(f"[chain kernel] profiler window over one {label} call ({lost} "
+          f"windows with no device event profiled again): "
+          f"{sum(c for c, _ in ops.values())} device launches, "
+          f"{sum(us for _, us in ops.values()) / 1e3:.3f} ms device time, "
+          f"bmm / gemm ops {mm}, chain kernels in it {ours}; one "
+          f"{mem_label} call's peak memory above "
+          f"the memory in use before it {extra / 1e6:.2f} MB (one fp16 copy "
+          f"of the plain version's matrices: {matrices_bytes / 1e6:.2f} MB)")
+    if mm or extra >= matrices_bytes:
+        raise AssertionError(f"{label}: the kernel path ran a matrix product "
+                             f"or allocated its matrices: {ops}, {extra} B")
+
+
+def chain_rows_adversarial(C: int, seed: int):
+    """Seeded adversarial chains (rows, C) int32 and their clen, as in
+    tests/test_torch_chain_scan.py: forward steps (clen C, C - 77, 0, 1), a
+    literal run, exits all at C from segment 1 on, exits back to earlier
+    segments, exits into the same segment, in-segment self and back edges,
+    an in-segment cycle, targets below 0 and past C, random targets."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(C)
+    S = C // 128
+    fwd = lambda hi: np.minimum(idx + rng.integers(1, hi, C), C)  # noqa
+    rows, clens = [fwd(9), fwd(9), fwd(9), fwd(9)], [C, C - 77, 0, 1]
+    rows.append(np.minimum(idx + 1, C))
+    at_c = fwd(40)
+    at_c[128:] = C
+    rows.append(at_c)
+    for k in (3, 12):
+        back = fwd(200)
+        back[rng.choice(C, k, replace=False)] = rng.integers(0, C, k)
+        rows.append(back)
+    same = fwd(60)
+    p = rng.choice(C, 3 * S, replace=False)
+    same[p] = (p // 128) * 128 + rng.integers(0, 128, p.size)
+    rows.append(same)
+    selfb = fwd(30)
+    p = rng.choice(C, 4 * S, replace=False)
+    selfb[p[::2]] = p[::2]
+    selfb[p[1::2]] = np.maximum(p[1::2] - rng.integers(1, 20, p[1::2].size),
+                                (p[1::2] // 128) * 128)
+    rows.append(selfb)
+    cyc = fwd(7)
+    s = rng.integers(0, S)
+    seg = np.arange(s * 128, (s + 1) * 128)
+    cyc[seg] = s * 128 + (seg - s * 128 + 1) % 128
+    rows.append(cyc)
+    wild = fwd(50)
+    p = rng.choice(C, 2 * S, replace=False)
+    wild[p[::2]] = -rng.integers(1, 1000, p[::2].size)
+    wild[p[1::2]] = C + rng.integers(1, 1000, p[1::2].size)
+    rows.append(wild)
+    rows.append(rng.integers(-5, C + 6, C))
+    clens += [C] * 5 + [C - 5, C, C, C - 200]
+    return (torch.from_numpy(np.array(rows, np.int32)),
+            torch.from_numpy(np.array(clens, np.int32)))
+
+
+def reach_rows_adversarial(M: int, subm: int, seed: int):
+    """Seeded adversarial tile chains (rows, M) int32 for subchain_reach:
+    forward steps, back and self edges, in-sub-chain cycles, targets below
+    0 and past M, a mix."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(M)
+    base = (idx // subm) * subm
+    mixed = idx + rng.integers(1, 9, M)
+    p = rng.choice(M, M // 8, replace=False)
+    mixed[p] = base[p] + rng.integers(0, subm, p.size)
+    rows = [idx + 1, idx + rng.integers(1, 5, M),
+            base + rng.integers(0, subm, M), base + (idx - base + 1) % subm,
+            rng.integers(-3, M + 4, M), idx.copy(), mixed]
+    return torch.from_numpy(np.array(rows, np.int32))
+
+
+def chain_adversarial(dev):
+    """Both chain kernels against their plain versions on seeded
+    adversarial rows on the card (chain_marks at C = 4,096 and at 81,920:
+    two and a half of the kernel's windows; subchain_reach at SUBM 128, 64
+    and 5)."""
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    for C, seed in ((4096, 2), (81920, 5)):
+        nxt, clen = (x.to(dev) for x in chain_rows_adversarial(C, seed))
+        err = check_equal(f"chain_marks (adversarial, C={C})",
+                          [ld._chain_marks(nxt, clen, C)],
+                          [ld._chain_marks_plain(nxt, clen, C)])
+        chain_result("chain_marks", dict(max_abs_err=err))
+        print(f"[chain kernel] chain_marks vs plain on {nxt.shape[0]} seeded "
+              f"adversarial rows of C={C}: equal")
+    for M, subm in ((1024, 128), (512, 64), (120, 5)):
+        nxt = reach_rows_adversarial(M, subm, M + subm).to(dev)
+        err = check_equal(f"subchain_reach (adversarial, SUBM {subm})",
+                          [ld._reach_from_start(nxt, subm)],
+                          [ld._reach_from_start_plain(nxt, subm)])
+        chain_result("subchain_reach", dict(max_abs_err=err))
+        print(f"[chain kernel] subchain_reach vs plain on {nxt.shape[0]} "
+              f"seeded adversarial rows of M={M}, SUBM {subm}: equal")
+
+
+def phase_main(data: bytes, blocks, arr, lens):
     import aocl_compression_tpu_torch as act
     from aocl_compression_tpu_torch.codecs.lz4 import _device_bodies
     from aocl_compression_tpu_torch.parallel import container
     from aocl_compression_tpu_torch.runtime import native
 
+    from aocl_compression_tpu_torch.ops import chain_scan
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+
+    dev = arr.device
     mb = len(data) / 1e6
     h = act.setup("lz4", opt_var=2, block_size=B, measure_stats=True)
     c, c_s, n_launch, peak_gb = run_path(
@@ -538,6 +746,9 @@ def phase_main(data: bytes, blocks, dev):
     if n_launch != 2 * 3:
         raise AssertionError("compact_rows did not launch its two kernels "
                              "once per compress call")
+    if chain_scan.launches["subchain_reach"] != 3:
+        raise AssertionError("subchain_reach did not launch once per "
+                             "compress call")
     d, d_s = best_s(lambda: act.decompress(h, c))
     if d != data:
         raise AssertionError("decompress did not return the input")
@@ -564,6 +775,17 @@ def phase_main(data: bytes, blocks, dev):
           "the stitch and RAP after the fetch; the d2h copies are pinned): "
           + fmt_stages(stage))
     STREAMS["lz4"] = c
+
+    # the chain marking of the main path's encode: subchain_reach on its
+    # real input, and one _grid_select call (device ops, memory)
+    nxt, subm = capture(ld, "_reach_from_start",
+                        lambda: ld.make_encoder(B, 4)(arr, lens))[0]
+    check_reach("main path", nxt, subm)
+    mlen, moff, valid = ld._find_matches(arr, lens, B, depth=4, nw=8)
+    chain_window("_grid_select (main path)", lambda: ld._grid_select(
+        mlen, moff, valid, B, 4, match_cap=ld._match_cap(4, 8, 128, 0)),
+        "_reach_from_start", lambda: ld._reach_from_start(nxt, subm),
+        2 * nxt.numel() * subm)
     return n_launch, c
 
 
@@ -593,6 +815,9 @@ def phase_bench(data: bytes, blocks, arr, lens):
           f"ext_passes=5) + fetch_chunks: ratio {len(data) / len(joined):.4f},"
           f" {len(data) / 1e6 / t:.2f} MB/s (best of 3, {t * 1e3:.2f} ms); "
           f"stitched stream decodes exactly")
+    nxt, subm = capture(lz4_device, "_reach_from_start",
+                        lambda: enc(arr, lens))[0]
+    check_reach(f"bench config, SUBM {subm}", nxt, subm)
 
 
 def rap_stream(chunks, dlens, pre=b""):
@@ -641,14 +866,31 @@ def fmt_stages(stage):
 
 def reset_counts():
     """Every kernel launch count (compact.launches, zstd_scan.launches,
-    inflate_scan.launches, entropy_scan.launches) to 0."""
-    from aocl_compression_tpu_torch.ops import (compact, entropy_scan,
-                                                inflate_scan, zstd_scan)
+    inflate_scan.launches, entropy_scan.launches, chain_scan.launches) to
+    0."""
+    from aocl_compression_tpu_torch.ops import (chain_scan, compact,
+                                                entropy_scan, inflate_scan,
+                                                zstd_scan)
     compact.launches = 0
     for counts in (zstd_scan.launches, inflate_scan.launches,
-                   entropy_scan.launches):
+                   entropy_scan.launches, chain_scan.launches):
         for k in counts:
             counts[k] = 0
+
+
+# The chain kernels' launches summed over every path run with the counts set
+# to 0 just before (run_path, counted, in_turns): the kernels line's counts.
+CHAIN_LAUNCHES = {"subchain_reach": 0, "chain_marks": 0}
+
+
+def tally_chain():
+    """chain_scan.launches since the last reset_counts(), added to
+    CHAIN_LAUNCHES; returns them."""
+    from aocl_compression_tpu_torch.ops import chain_scan
+    got = dict(chain_scan.launches)
+    for k, v in got.items():
+        CHAIN_LAUNCHES[k] += v
+    return got
 
 
 def run_path(label, fn, hits_want, calls=3, per_call=None):
@@ -657,7 +899,8 @@ def run_path(label, fn, hits_want, calls=3, per_call=None):
     entropy_scan.launches) set to 0 just before: (last result, best s,
     compact_rows launches, peak device GB); the scan kernels' counts stay in
     zstd_scan.launches, inflate_scan.launches and entropy_scan.launches
-    for the caller to read. Fails unless every audit
+    for the caller to read (the chain kernels' are also added to
+    CHAIN_LAUNCHES). Fails unless every audit
     name in hits_want was hit `calls` times (times per_call[name] where
     given)."""
     from aocl_compression_tpu_torch.ops import compact
@@ -673,9 +916,11 @@ def run_path(label, fn, hits_want, calls=3, per_call=None):
         hits = dispatch.audit_hits()
     finally:
         dispatch.enable_audit(False)
+    chain = tally_chain()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
-          f"compact_rows launches in {calls} calls: {launches}")
+          f"compact_rows launches in {calls} calls: {launches}; chain "
+          f"kernels' launches: {json.dumps(chain)}")
     for name in hits_want:
         if hits.get(name) != calls * (per_call or {}).get(name, 1):
             raise AssertionError(f"{label}: {name} was not hit as often as "
@@ -746,9 +991,20 @@ def phase_lz4hc(data: bytes, blocks, arr, lens):
     for _ in range(lazy):
         valid = ld._lazy_demote(mlen, valid)
     ops = device_ops(lambda: ld._greedy_parse(mlen, valid, B))[0].values()
-    print(f"[lz4hc] one _greedy_parse call (N={N}, C={B}): "
+    nxt, clen, C = capture(ld, "_chain_marks",
+                           lambda: ld._greedy_parse(mlen, valid, B))[0]
+    pops = device_ops(lambda: ld._chain_marks_plain(nxt, clen, C))[0].values()
+    print(f"[lz4hc] one _greedy_parse call (N={N}, C={B}), the kernel path: "
           f"{sum(c for c, _ in ops)} device launches, "
-          f"{sum(us for _, us in ops) / 1e3:.3f} ms device time (profiler)")
+          f"{sum(us for _, us in ops) / 1e3:.3f} ms device time (profiler); "
+          f"one call of the plain _chain_marks_plain on its input (the "
+          f"parent's path): {sum(c for c, _ in pops)} device launches, "
+          f"{sum(us for _, us in pops) / 1e3:.3f} ms device time")
+    check_marks("lz4hc 9 greedy parse", nxt, clen, C)
+    chain_window("_greedy_parse (lz4hc 9)",
+                 lambda: ld._greedy_parse(mlen, valid, B), "_chain_marks",
+                 lambda: ld._chain_marks(nxt, clen, C), 2 * nxt.numel() * 128)
+    chain_adversarial(arr.device)
     return launches, c, peak_gb
 
 
@@ -801,6 +1057,9 @@ def phase_decode(data: bytes, streams, dev):
     if got != [native.lz4_decompress(x, d) for x, d in zip(chunks, dl)]:
         raise AssertionError("decode: device batch differs from the host "
                              "decoder")
+    nxt, clen, C = capture(ld, "_chain_marks", lambda: ld.decode_blocks(
+        chunks, dl, B, device=dev))[0]
+    check_marks("lz4hc stream's device decode batch", nxt, clen, C)
     print(f"[decode] lz4hc device batch: N={len(chunks)}, C="
           f"{ld._bucket(max(len(x) for x in chunks))}, B="
           f"{ld._bucket(max(max(dl), B))}, resolve passes {passes}; "
@@ -924,6 +1183,9 @@ def phase_snappy(data: bytes, blocks, dev):
                                        "tag_scan")
     if b"".join(got) != data:
         raise AssertionError("decode snappy: staged batch differs")
+    nxt, clen, C = capture(ld, "_chain_marks", lambda: sd.decode_blocks(
+        chunks, dl, B, device=dev))[0]
+    check_marks("snappy device decode batch", nxt, clen, C)
     print(f"[decode snappy] device batch: N={len(chunks)}, C={C}, resolve "
           f"passes {passes}; stage times, ms (min of 3; device events): "
           + fmt_stages(stage))
@@ -932,11 +1194,12 @@ def phase_snappy(data: bytes, blocks, dev):
 
 # --- the entropy-table kernels (csrc/entropy_scan.cu) ----------------------
 
-def check_entropy(tag, label, kernel, plain, args, nbytes, steps):
-    """An entropy-table kernel against its plain loop on the whole batch's
-    real inputs on the card (every output equal), the kernel's graph-replay
-    time, the plain loop's (device events, one call), the HBM bound and the
-    serial floor: dict(max_abs_err, ms, plain_ms, bound_ms, steps, ...)."""
+def check_rows(tag, label, kernel, plain, args, nbytes, steps):
+    """A kernel (an entropy-table or chain-marking one) against its plain
+    version on the whole batch's real inputs on the card (every output
+    equal; both return tuples), the kernel's graph-replay time, the plain
+    version's (device events, one call), the HBM bound and the serial
+    floor: dict(max_abs_err, ms, plain_ms, bound_ms, steps, ...)."""
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -952,7 +1215,7 @@ def check_entropy(tag, label, kernel, plain, args, nbytes, steps):
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"[{tag}] {label} vs plain on the whole batch's real inputs "
           f"(N={args[0].shape[0]}): equal on every output; kernel {ms:.4f} "
-          f"ms (CUDA-graph replay), plain loop {plain_ms:.2f} ms (one call, "
+          f"ms (CUDA-graph replay), plain version {plain_ms:.2f} ms (one call, "
           f"device events), bound {bound:.4f} ms ({nbytes} B at 3.35 TB/s), "
           f"longest row {steps} serial steps")
     st = per_step(tag, label, lambda: kernel(*args), ms, steps)
@@ -1143,7 +1406,7 @@ def phase_zlib(data: bytes, blocks, dev):
     del arr8
     kraft = {}
     for nsym, a in ((288, a288), (32, a32)):
-        kraft[nsym] = check_entropy(
+        kraft[nsym] = check_rows(
             "entropy kernel", f"kraft_absorb at {nsym} symbols",
             dd._kraft_absorb, dd._kraft_absorb_plain, a, kraft_bytes(a[0]),
             nsym)
@@ -1758,11 +2021,11 @@ def phase_zstd(data: bytes, blocks, dev):
     wargs = capture(zd, "_encode_weights", encode)[0]
     n_ = wargs[0].shape[0]
     entropy = {
-        "kraft_absorb": check_entropy(
+        "kraft_absorb": check_rows(
             "entropy kernel", "kraft_absorb at 256 symbols",
             zd._kraft_absorb, _kraft_absorb_plain, kargs,
             kraft_bytes(kargs[0]), 256),
-        "weights_fse_encode": check_entropy(
+        "weights_fse_encode": check_rows(
             "entropy kernel", "weights_fse_encode", zd._encode_weights,
             zd._encode_weights_plain, wargs,
             n_ * (255 * 4 + entropy_scan.WCAP + 4) + (64 + 2 * 12) * 4,
@@ -1804,8 +2067,10 @@ def counted(label, fn, hits_want):
         hits = dispatch.audit_hits()
     finally:
         dispatch.enable_audit(False)
+    chain = tally_chain()
     print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
-          f"compact_rows launches: {launches}")
+          f"compact_rows launches: {launches}; chain kernels' launches: "
+          f"{json.dumps(chain)}")
     for name, want in hits_want.items():
         if hits.get(name) != want:
             raise AssertionError(f"{label}: {name} was hit "
@@ -2084,6 +2349,7 @@ def in_turns(single, multi):
         dispatch.enable_audit(False)
     n, scans = compact.launches, dict(zstd_scan.launches,
                                       **entropy_scan.launches)
+    tally_chain()
     times["multi"] = [t, best_s(multi, 1)[1]]
     times["single"].append(best_s(single, 1)[1])
     return res, times, hits, n, scans
@@ -2359,7 +2625,7 @@ def main():
     kernel = phase_kernel(out, sizes, slices)
     del slices
     paths = {}
-    paths["lz4"], c_lz4 = phase_main(data, blocks, dev)
+    paths["lz4"], c_lz4 = phase_main(data, blocks, arr, lens)
     phase_bench(data, blocks, arr, lens)
     paths["lz4hc"], c_hc, _ = phase_lz4hc(data, blocks, arr, lens)
     paths["lz4/lz4hc device decode"] = phase_decode(
@@ -2427,6 +2693,20 @@ def main():
             max_abs_err=st["max_abs_err"], ms=st["ms"],
             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by="bytes", library_ms=None))
+    replaces = {
+        "subchain_reach": "aocl_compression_tpu/ops/lz4_device.py:516, :352",
+        "chain_marks": "aocl_compression_tpu/ops/lz4_device.py:832, :849"}
+    for name, st in CHAIN.items():
+        if not CHAIN_LAUNCHES[name]:
+            raise AssertionError(f"{name} was never launched on the paths")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aocl_compression_tpu_torch/csrc/chain_scan.cu",
+            replaces=replaces[name], launches=CHAIN_LAUNCHES[name],
+            max_abs_err=st["max_abs_err"], ms=st["ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by="bytes", library_ms=None))
+    print("[paths] chain kernels' launches: " + json.dumps(CHAIN_LAUNCHES))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
