@@ -5,18 +5,23 @@ bound with ctypes, as ops/entropy_scan.py builds entropy_scan.cu:
 
   subchain_reach  — the tiles each sub-chain of SUBM tiles reaches from its
                     local 0 (ops/lz4_device._reach_from_start, in
-                    _grid_select: every tile encoder's parse); one thread a
-                    sub-chain walks its staged targets in shared memory;
+                    _grid_select: every tile encoder's parse); one lane a
+                    sub-chain walks its staged targets in shared memory,
+                    each warp on its own 32;
   chain_marks     — the positions the chain p -> nxt[p] visits from 0,
                     threaded through 128-position segments in order
                     (ops/lz4_device._chain_marks: the exact parse's greedy
                     chain and the lz4 and snappy decoders' token chains);
-                    one CUDA block a row.
+                    a thread-block cluster a row (8 CTAs for a lone row,
+                    one CTA from 67 rows on; the C launcher picks the size
+                    from N and the card's SM count).
 
 Each wrapper takes CUDA tensors only, allocates its output with
 torch.empty, launches on the current stream and raises when the launch
-fails. Their plain PyTorch versions live beside their callers, which pick
-the kernel for a CUDA tensor and the plain version for a CPU tensor.
+fails (a refused cluster or shared-memory configuration included: there
+is no fallback). Their plain PyTorch versions live beside their callers,
+which pick the kernel for a CUDA tensor and the plain version for a CPU
+tensor.
 """
 
 from __future__ import annotations

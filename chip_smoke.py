@@ -122,8 +122,11 @@ non-zero before the last line:
      first 16 blocks with block checksums off and on, audited, launches
      counted, round trips through decompress_frame and DecompressStream,
      their sha256 against the JAX package's, MB/s best of 3; the
-     compaction at the frame path's shape (N = 1) against its plain
-     version; the whole corpus timed once beside the host-tier frame and
+     compaction and chain_marks at the frame path's shape (N = 1 block;
+     chain_marks at N = 1 x 65,536, where most of its launches run)
+     against their plain versions, chain_marks with its graph-replay
+     time, HBM bound and serial floor; the whole corpus timed once beside
+     the host-tier frame and
      phase 4's RAP path), native_api.LZ4_compress_fast(data, 2) (equal to
      setup("lz4", opt_var=2, enable_rap=False), decoded by
      LZ4_decompress_safe, pinned), CompressStream / DecompressStream of
@@ -598,16 +601,24 @@ def check_reach(label, nxt, subm):
     return res
 
 
+def marks_bytes(nxt, clen):
+    """chain_marks' bytes for this input: clen read, nxt read below each
+    row's clen (a position at or past it holds no mark, whatever its
+    target), mark written whole."""
+    C = nxt.shape[1]
+    below = int(torch.clamp(clen.to(torch.int64), 0, C).sum())
+    return 4 * below + nxt.numel() + 4 * clen.numel()
+
+
 def check_marks(label, nxt, clen, C):
     """chain_marks against its plain version on a batch's real input:
-    bytes = nxt and clen read once, mark written once."""
+    bytes as marks_bytes."""
     from aocl_compression_tpu_torch.ops import lz4_device as ld
     steps = marks_steps(ld._chain_marks(nxt, clen, C))
     res = check_rows("chain kernel", f"chain_marks ({label})",
                      lambda *a: (ld._chain_marks(*a),),
                      lambda *a: (ld._chain_marks_plain(*a),),
-                     (nxt, clen, C), 5 * nxt.numel() + 4 * clen.numel(),
-                     steps)
+                     (nxt, clen, C), marks_bytes(nxt, clen), steps)
     chain_result("chain_marks", res)
     return res
 
@@ -2141,6 +2152,7 @@ def phase_surface(data: bytes, dev):
     from aocl_compression_tpu_torch import native_api
     from aocl_compression_tpu_torch.codecs import lz4_frame, xz, zstd
     from aocl_compression_tpu_torch.ops import compact
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
     from aocl_compression_tpu_torch.tools import bench_cli
     from aocl_compression_tpu_torch.utils import profiling
     from aocl_compression_tpu_torch.utils.config import TIER_TORCH
@@ -2177,6 +2189,11 @@ def phase_surface(data: bytes, dev):
     seen = capture(compact, "compact_rows_kernel", lambda: frame(pin[:B]))
     frame_err = check_compact(compact, "the frame path, one frame block",
                               *seen[0])[1]
+    # its chain marking at the same shape (the greedy parse of one 64 KiB
+    # block at acceleration 1: N = 1 x 65,536, most of chain_marks'
+    # launches), against the plain version, timed beside its bound
+    check_marks("the frame path, one frame block",
+                *capture(ld, "_chain_marks", lambda: frame(pin[:B]))[0])
 
     # the whole corpus once (256 device calls), beside the host-tier frame
     # and the RAP lz4 path of phase 4

@@ -9,12 +9,15 @@ It copies chain_scan.cu into _time_build/phases/ with a clock64() stamp
 after each __syncthreads() of chain_marks_kernel (thread 0 adds the cycles
 since the previous stamp to a device counter of that stamp), builds the
 copy with nvcc, runs it once on each chain_marks input and prints the
-cycles per block of each stamp, summed over the row's windows: 1 the
-start (clen and the chain's first position), 2 the staging of the
-targets, 3 the per-segment sweep for last[], 4 the chain threaded
-through the segments by one thread, 5 the walks that mark each entered
-segment, 6 the write of the marks. The stamps add a few cycles each; the
-kernel's time comes from time_chain_kernels.py, not from here.
+cycles per CTA of each stamp (summed over the CTAs and their windows,
+divided by the CTAs launched: K a row in a cluster of K): 1 the start
+(clen, the chain's first position, the cluster's first barrier), 2 the
+staging of the targets, 3 the per-segment sweep into the exit table, 4
+the chain threaded through the segments by one thread (in a cluster's
+later CTAs with the guessed chain and the wait for the true entry), 5 the
+walks that mark each entered segment, 6 the write of the marks. The
+stamps add a few cycles each; the kernel's time comes from
+time_chain_kernels.py, not from here.
 """
 
 import ctypes
@@ -52,6 +55,8 @@ def instrumented() -> str:
     kern = re.sub(r"__syncthreads\(\);", stamp, kern)
     kern = kern.replace("  const int len = clen[row];",
                         "  long long last = clock64();\n"
+                        "  if (threadIdx.x == 0) "
+                        "atomicAdd(&g_stamp[0], 1ull);\n"
                         "  const int len = clen[row];", 1)
     code = (head.replace("namespace {", "__device__ unsigned long long "
                          "g_stamp[16];\nnamespace {", 1)
@@ -102,10 +107,10 @@ def main():
             raise RuntimeError(f"chain_marks: CUDA error {err}")
         buf = (ctypes.c_ulonglong * 16)()
         lib.atpu_chain_stamps(ctypes.addressof(buf), 0)
-        per = [buf[i] / nxt.shape[0] for i in range(1, 7)]
-        print(f"[chain_marks phases] {label} {tuple(nxt.shape)}: SM cycles "
-              f"per block " + ", ".join(f"{k} {v:.0f}"
-                                        for k, v in zip(names, per))
+        per = [buf[i] / buf[0] for i in range(1, 7)]
+        print(f"[chain_marks phases] {label} {tuple(nxt.shape)}, "
+              f"{buf[0]} CTAs: SM cycles per CTA " + ", ".join(
+                  f"{k} {v:.0f}" for k, v in zip(names, per))
               + f"; total {sum(per):.0f}")
     return 0
 

@@ -7,9 +7,10 @@ seeded numpy rows go through the JAX functions (jitted and vmapped on the
 CPU). The chain rows hold the edges the real chains never have: exits into
 an earlier or the same segment, in-segment back and self edges and cycles,
 targets below 0 and past C, exits exactly at C, clen = 0 and clen not a
-multiple of 128. _grid_select runs on seeded candidates at the bench
-config's SUBM 64 / G = 8 and at M < 128. Tolerance: exact equality on every
-output.
+multiple of 128. _greedy_parse (the exact parse's chain, as the LZ4 frame's
+device tier marks a block) runs on seeded match candidates, _grid_select on
+seeded candidates at the bench config's SUBM 64 / G = 8 and at M < 128.
+Tolerance: exact equality on every output.
 
 The JAX package is imported inside fixtures, so the card-only tests (each
 kernel against its plain version, on these rows and on full 256-row
@@ -126,13 +127,31 @@ def test_chain_marks_backward_exit_minimal(jax_mods):
 
 
 @pytest.mark.parametrize("C,seed", [(1024, 1), (4096, 2), (384, 3),
-                                    (128, 4)])
+                                    (128, 4), (640, 7), (2560, 8),
+                                    (1152, 9)])
 def test_chain_marks_matches_jax(jax_mods, C, seed):
     nxt, clen = _chain_rows(C, seed)
     want = _jax_marks(jax_mods, nxt, clen)
     assert not want[2].any()                  # clen = 0
     assert want[4].all()                      # the literal run
     _eq(tdev._chain_marks(_t(nxt), _t(clen), C), want)
+
+
+@pytest.mark.parametrize("B,seed", [(4096, 11), (2048, 12)])
+def test_greedy_parse_matches_jax(jax_mods, B, seed):
+    """The exact parse's greedy chain (next = i + mlen at a match, else
+    i + 1), as the LZ4 frame's device tier marks one block: long literal
+    runs, dense and sparse matches, matches past the block's end."""
+    jax, jnp, jdev = jax_mods
+    rng = np.random.default_rng(seed)
+    mlen = rng.integers(4, 300, (4, B)).astype(np.int32)
+    mlen[1] = rng.integers(4, 12, B)
+    valid = rng.random((4, B)) < np.array([0.02, 0.5, 0.9, 0.2])[:, None]
+    valid[3, : B // 2] = False
+    fn = jax.jit(jax.vmap(functools.partial(jdev._greedy_parse, B=B)))
+    want = np.asarray(fn(jnp.asarray(mlen), jnp.asarray(valid)))
+    _eq(tdev._greedy_parse(_t(mlen), _t(valid), B), want)
+    assert want[3, : B // 2].all()
 
 
 def _candidates(N: int, B: int, seed: int):
@@ -231,6 +250,55 @@ def test_chain_marks_kernel_matches_plain(cuda_device, C, seed):
     got = tdev._chain_marks(nxt, clen, C)
     torch.cuda.synchronize()
     assert chain_scan.launches["chain_marks"] == n0 + 1
+    assert torch.equal(got, want)
+
+
+def _row_batches(rows, clens, N: int):
+    """The rows in batches of N, in turn (the last batch wraps around)."""
+    n = len(rows)
+    for b in range(0, n, N):
+        sel = [(b + i) % n for i in range(N)]
+        yield rows[sel], clens[sel]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [128, 4096, 65536, 81920])
+@pytest.mark.parametrize("N", [1, 2, 7, 133])
+def test_chain_marks_kernel_launch_configs(cuda_device, N, C):
+    """chain_marks at batch sizes that take each launch configuration: a
+    cluster of 8 CTAs a row (N = 1, 2, 7; the shares' guessed chains
+    meet the true one or not, exits land in later shares or end the
+    chain), and one CTA a row once two a row would pass the card's 132
+    SMs (N = 133); C = 128 (one segment, a cluster of 1), 4,096, the
+    frame path's 65,536 and 81,920 (two and a half windows). The rows of
+    _chain_rows (seeds 20 on); the plain version runs on the card."""
+    from aocl_compression_tpu_torch.ops import chain_scan
+    sets = [_chain_rows(C, 20 + k) for k in range(-(-N // 13))]
+    rows = np.concatenate([r for r, _ in sets])
+    clens = np.concatenate([c for _, c in sets])
+    for nxt, clen in _row_batches(rows, clens, N):
+        nxt, clen = _t(nxt).to(cuda_device), _t(clen).to(cuda_device)
+        want = tdev._chain_marks_plain(nxt, clen, C)
+        n0 = chain_scan.launches["chain_marks"]
+        got = tdev._chain_marks(nxt, clen, C)
+        torch.cuda.synchronize()
+        assert chain_scan.launches["chain_marks"] == n0 + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,subm", [(16384, 128), (8192, 64), (1270, 127),
+                                    (96, 6)])
+@pytest.mark.parametrize("N", [1, 5, 133])
+def test_subchain_reach_kernel_launch_configs(cuda_device, N, M, subm):
+    """subchain_reach at batch sizes whose sub-chains fill part of a warp's
+    32, whole blocks and more than one wave, at SUBM 128, 64, 127 and 6
+    (not multiples of 4 take the word-at-a-time staging)."""
+    rows = _reach_rows(M, subm, N + M + subm)
+    nxt = _t(rows[[i % len(rows) for i in range(N)]]).to(cuda_device)
+    want = tdev._reach_from_start_plain(nxt, subm)
+    got = tdev._reach_from_start(nxt, subm)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
