@@ -73,8 +73,12 @@ non-zero before the last line:
      the whole batch's real 288- and 32-symbol inputs and on seeded
      adversarial rows (no symbol, one, all present, all-equal counts, a
      65,536-count symbol whose share wraps negative, two 70,000-count
-     symbols, a Kraft sum past 1), its graph-replay time, HBM bound,
-     serial steps, µs and SM cycles per step and serial floor; then device
+     symbols, a Kraft sum past 1) and on a seeded batch called directly
+     (unsorted lengths, arbitrary int32 deficits), its graph-replay time,
+     HBM bound, serial steps of the run walk (the longest row's runs plus
+     its steps that change a length), µs and SM cycles per step, serial
+     floor and SM cycles a warp of each phase (staging, runs, walk,
+     write-back; scripts/entropy_phases.py's stamped build); then device
      inflate
      (set_config(device_decode=True)) of both streams through the API:
      exact, audited, the inflate kernel's launches, the chunks on each
@@ -106,7 +110,9 @@ non-zero before the last line:
      real inputs and on seeded adversarial rows (literal rows with no
      literal, one, one symbol, all 256, 64 equal counts, a Kraft sum past
      1; weights all 0, all 11, alternating, a ramp, random), with their
-     times, bounds and serial floors as in phase 9;
+     times, bounds, serial floors and phase cycles as in phase 9 (the
+     weight encode's longest lane: 128 steps; its time includes the
+     caller's contiguous copy of the weights view);
  11. bzip2 and lzma on the same corpus: setup("bzip2", level=9) (host)
      beside setup("bzip2", level=9, opt_var=2) (the device block sort),
      setup("lzma", level=6) (host) beside setup("lzma", level=6,
@@ -163,6 +169,7 @@ non-zero before the last line:
 import concurrent.futures
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -173,6 +180,11 @@ import torch
 B = 65536
 N = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peak
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: the instrumented build of csrc/entropy_scan.cu (scripts/
+#: entropy_phases.py): "lib" -> (ctypes library, {kernel: phase names})
+ENTROPY_PHASES = {}
 
 # The new paths' calls, and the sha256 of the JAX package's RAP stream of
 # the corpus's first PINNED_BLOCKS blocks under each, computed with JAX on
@@ -307,17 +319,26 @@ def phase_build():
         fn()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(6) as ex:
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import entropy_phases
+
+    def phases():
+        ENTROPY_PHASES["lib"] = entropy_phases.build(ROOT)
+
+    with concurrent.futures.ThreadPoolExecutor(7) as ex:
         nvcc = ex.submit(timed, compact.build)
         scan = ex.submit(timed, zstd_scan.build)
         inf = ex.submit(timed, inflate_scan.build)
         ent = ex.submit(timed, entropy_scan.build)
+        stamped = ex.submit(timed, phases)
         chain = ex.submit(timed, chain_scan.build)
         host = ex.submit(timed, native.get_lib)
         print(f"[build] nvcc csrc/compact.cu (sm_90a): {nvcc.result():.2f} s; "
               f"nvcc csrc/zstd_scan.cu (sm_90a): {scan.result():.2f} s; "
               f"nvcc csrc/inflate_scan.cu (sm_90a): {inf.result():.2f} s; "
-              f"nvcc csrc/entropy_scan.cu (sm_90a): {ent.result():.2f} s; "
+              f"nvcc csrc/entropy_scan.cu (sm_90a): {ent.result():.2f} s "
+              f"(its copy with phase stamps, scripts/entropy_phases.py: "
+              f"{stamped.result():.2f} s); "
               f"nvcc csrc/chain_scan.cu (sm_90a): {chain.result():.2f} s; "
               f"host library (make -C csrc): {host.result():.2f} s")
     for log in (compact.build_log, zstd_scan.build_log,
@@ -1239,6 +1260,52 @@ def kraft_bytes(nbs):
     return 2 * 4 * (nbs.numel() + nbs.shape[0])
 
 
+def kraft_steps(nbs, nbs2) -> int:
+    """kraft_absorb's serial steps on the longest row of the run walk:
+    the row's runs of equal lengths plus its steps with k = nbs - nbs2 >
+    0 (the steps that change a length)."""
+    nbs, nbs2 = nbs.cpu(), nbs2.cpu()
+    runs = 1 + (nbs[:, 1:] != nbs[:, :-1]).sum(dim=1)
+    return int((runs + (nbs2 != nbs).sum(dim=1)).max())
+
+
+def entropy_phases(label, name, args, ms):
+    """Print the SM cycles a warp of each phase of an entropy-table kernel
+    on args, as its C entry point takes them, from the build with phase
+    stamps (scripts/entropy_phases.py), with the span of its warps and the
+    launch and drain (ms, the kernel's graph-replay time, less the span)."""
+    import entropy_phases as ep
+    lib, names = ENTROPY_PHASES["lib"]
+    print(ep.line("entropy kernel phases", label,
+                  ep.phases(lib, names, name, args, ms)))
+
+
+def kraft_direct(dev, seed: int = 21, n: int = 257, nsym: int = 288,
+                 maxlen: int = 15):
+    """kraft_absorb called directly on a seeded batch of unsorted lengths
+    in [0, maxlen] and arbitrary int32 deficits (every 16th row one run,
+    every 16th all zero), held to its plain loop; returns the max abs
+    error (0)."""
+    from aocl_compression_tpu_torch.ops import deflate_device as dd
+    from aocl_compression_tpu_torch.ops import entropy_scan
+    rng = np.random.default_rng(seed)
+    nbs = rng.integers(0, maxlen + 1, (n, nsym))
+    nbs[::16] = rng.integers(1, maxlen + 1, (len(nbs[::16]), 1))
+    nbs[5::16] = 0
+    d = rng.integers(-(1 << 31), 1 << 31, n)
+    d[::7] = rng.integers(-(1 << maxlen), (1 << maxlen) + 1, len(d[::7]))
+    nbs = torch.from_numpy(nbs.astype(np.int32))
+    d = torch.from_numpy(d.astype(np.int32))
+    got = entropy_scan.kraft_absorb(nbs.to(dev), d.to(dev), maxlen)
+    err = check_equal("kraft_absorb (direct batch)", [g.cpu() for g in got],
+                      dd._kraft_absorb_plain(nbs, d, maxlen))
+    print(f"[entropy kernel] kraft_absorb called directly vs plain on a "
+          f"seeded batch of {n} x {nsym} unsorted lengths in [0, {maxlen}] "
+          f"(one-run and all-zero rows among them) with arbitrary int32 "
+          f"deficits: equal on every output")
+    return err
+
+
 def kraft_hists(nsym: int, seed: int):
     """Seeded adversarial (rows, nsym) int32 histograms, as in
     tests/test_torch_entropy_scan.py: no symbol, one present symbol, two,
@@ -1417,14 +1484,18 @@ def phase_zlib(data: bytes, blocks, dev):
     del arr8
     kraft = {}
     for nsym, a in ((288, a288), (32, a32)):
+        label = f"kraft_absorb at {nsym} symbols"
         kraft[nsym] = check_rows(
-            "entropy kernel", f"kraft_absorb at {nsym} symbols",
-            dd._kraft_absorb, dd._kraft_absorb_plain, a, kraft_bytes(a[0]),
-            nsym)
+            "entropy kernel", label, dd._kraft_absorb,
+            dd._kraft_absorb_plain, a, kraft_bytes(a[0]),
+            kraft_steps(a[0], dd._kraft_absorb(*a)[0]))
+        entropy_phases(label, "kraft_absorb", a, kraft[nsym]["ms"])
         err = kraft_adversarial(
-            f"kraft_absorb at {nsym} symbols", dd,
+            label, dd,
             lambda: dd._kraft_lengths(kraft_hists(nsym, nsym), nsym), dev)
         kraft[nsym]["max_abs_err"] = max(kraft[nsym]["max_abs_err"], err)
+    kraft[288]["max_abs_err"] = max(kraft[288]["max_abs_err"],
+                                    kraft_direct(dev))
     kraft[288]["launches"] = kraft_launches
     dlaunches, inflate = phase_inflate(data, streams, dev)
     return total, dlaunches, inflate, kraft
@@ -2035,12 +2106,20 @@ def phase_zstd(data: bytes, blocks, dev):
         "kraft_absorb": check_rows(
             "entropy kernel", "kraft_absorb at 256 symbols",
             zd._kraft_absorb, _kraft_absorb_plain, kargs,
-            kraft_bytes(kargs[0]), 256),
+            kraft_bytes(kargs[0]),
+            kraft_steps(kargs[0], zd._kraft_absorb(*kargs)[0])),
         "weights_fse_encode": check_rows(
-            "entropy kernel", "weights_fse_encode", zd._encode_weights,
+            "entropy kernel", "weights_fse_encode (the longest lane: state "
+            "1's init and 127 steps)", zd._encode_weights,
             zd._encode_weights_plain, wargs,
             n_ * (255 * 4 + entropy_scan.WCAP + 4) + (64 + 2 * 12) * 4,
-            255)}
+            128)}
+    c = zd._consts(dev)
+    for name, args in (("kraft_absorb", kargs),
+                       ("weights_fse_encode",
+                        (wargs[0].contiguous(), c["w_nxt"], c["w_dnb"],
+                         c["w_dfs"]))):
+        entropy_phases(f"{name} (zstd 1)", name, args, entropy[name]["ms"])
     lits, nl = lit_rows_adversarial()
     err = kraft_adversarial("kraft_absorb at 256 symbols", zd,
                             lambda: zd._block_huffman(lits, nl), dev)

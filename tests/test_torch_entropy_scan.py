@@ -16,6 +16,7 @@ kernels against the plain loops) also run where JAX is absent:
 """
 
 import functools
+import zlib
 
 import numpy as np
 import pytest
@@ -192,6 +193,270 @@ def test_kraft_absorb_plain_hand_rows():
     assert D.tolist() == [1, -3]
 
 
+# --- the kernels' algorithms, as numpy models, against the plain loops --------
+
+I32MAX = (1 << 31) - 1
+
+
+def _absorb_runs(nbs, D, maxlen):
+    """numpy model of kraft_absorb's run walk (csrc/entropy_scan.cu), step
+    for step as the kernel takes it: the runs of equal length listed in
+    order; per run (while D > 0) a = D >> sh, b = a + 1, the capped steps
+    (k = nb - 1) counted by one division and cut at the run's end, then
+    single steps with k = floor(log2 b) until b = 1, D = (b - 1) * 2^sh + r;
+    a run of nb <= 1, or whose a + 1 wraps int32, changes nothing. The walk
+    leaves each position's k (0 where it took no step); every position then
+    takes nb - k."""
+    nbs = np.asarray(nbs, np.int64)
+    out = nbs.copy()
+    dout = np.asarray(D, np.int64).copy()
+    for i, row in enumerate(nbs):
+        nsym = len(row)
+        starts = [0] + [j for j in range(1, nsym) if row[j] != row[j - 1]]
+        rs = starts + [nsym]
+        kk = np.zeros(nsym, np.int64)
+        d = int(dout[i])
+        for r in range(len(starts)):
+            if d <= 0:
+                break
+            s, e, v = rs[r], rs[r + 1], int(row[rs[r]])
+            cap, sh = v - 1, maxlen - v
+            a = d >> sh
+            if cap <= 0 or a == I32MAX:
+                continue
+            b, top = a + 1, 1 << cap
+            j = s
+            if b >= top:
+                m = min((b - top) // (top - 1) + 1, e - s)
+                b -= m * (top - 1)
+                kk[s:s + m] = cap
+                j += m
+            while j < e and b > 1:
+                k = b.bit_length() - 1
+                kk[j] = k
+                b -= (1 << k) - 1
+                j += 1
+            d = ((b - 1) << sh) + (d & ((1 << sh) - 1))
+        out[i] = row - kk
+        dout[i] = d
+    return out.astype(np.int32), dout.astype(np.int32)
+
+
+def _d_edges(maxlen, n, rng):
+    """n deficits: the edges (-2^MAXLEN, -1, 0, 1, 2, 2^MAXLEN - 1,
+    2^MAXLEN), then seeded values in [-2^MAXLEN, 2^MAXLEN]."""
+    top = 1 << maxlen
+    edge = [-top, -1, 0, 1, 2, top - 1, top]
+    return np.array((edge + list(rng.integers(-top, top + 1, n)))[:n],
+                    np.int64)
+
+
+def _absorb_case(case):
+    """(nbs (rows, NSYM) int32, D (rows,) int32, MAXLEN) of one case."""
+    rng = np.random.default_rng(zlib.crc32(str(case).encode()))
+    if case == "hand":   # test_kraft_absorb_plain_hand_rows' rows and more
+        nbs = [[3, 3, 0], [2, 1, 0], [3, 3, 3], [1, 2, 3], [3, 2, 2]]
+        return (np.array(nbs, np.int32), np.array([5, -3, 7, 8, 3],
+                                                  np.int32), 3)
+    if case == "short runs":   # capped counts past their runs' ends
+        rows = [[9, 9, 10, 10, 11, 11, 12, 13, 15, 15, 0, 0],
+                [15, 15, 15, 14, 14, 2, 2, 1, 0, 0, 0, 0],
+                [2, 3, 3, 4, 4, 4, 4, 5, 5, 6, 7, 0]]
+        nbs = np.repeat(np.array(rows), 8, axis=0)
+        D = np.tile([1 << 15, (1 << 15) - 3, 40000, 1 << 14, 5000, 977,
+                     65535, 3], 3)
+        return nbs.astype(np.int32), D.astype(np.int32), 15
+    if case == "one run":
+        nbs = np.repeat(np.arange(1, 12)[:, None], 40, axis=1)
+        nbs = np.repeat(nbs, 4, axis=0)
+        D = np.tile([1 << 11, 1000, 0, -5], 11)
+        return nbs.astype(np.int32), D.astype(np.int32), 11
+    if case == "zeros":
+        return (np.zeros((7, 64), np.int32),
+                _d_edges(15, 7, rng).astype(np.int32), 15)
+    if case[0] == "pool":   # the card tests' rows
+        return (*_absorb_pool(*case[1:]), case[2])
+    if case == "int32 edge":   # (D >> 0) + 1 wraps: no step
+        nbs = np.array([[15, 15, 14, 3, 0], [14, 15, 15, 15, 0],
+                        [1, 2, 15, 15, 15]], np.int32)
+        D = np.array([I32MAX, I32MAX, I32MAX], np.int32)
+        return nbs, D, 15
+    nsym, maxlen, order = case
+    rows = []
+    for i in range(48):
+        present = int(rng.integers(1, nsym + 1))
+        lens = rng.integers(1, maxlen + 1, present)
+        if i % 3 == 0:   # skewed towards long codes, as real tables are
+            lens = np.minimum(maxlen, lens + rng.integers(0, maxlen, present))
+        row = np.zeros(nsym, np.int64)
+        row[:present] = np.sort(lens)
+        if order == "unsorted":
+            row = rng.permutation(row)
+        rows.append(row)
+    return (np.array(rows, np.int32),
+            _d_edges(maxlen, len(rows), rng).astype(np.int32), maxlen)
+
+
+POOL_SHAPES = [(288, 15), (32, 15), (256, 11), (1, 11), (37, 15),
+               (383, 30), (3778, 15)]
+
+
+def _absorb_pool(nsym, maxlen, rows=260):
+    """(nbs (rows, nsym), D (rows,)) int32, seeded: rows sorted as the
+    callers sort them (some skewed towards long codes), unsorted rows,
+    rows of one run and all-zero rows, in turn; D at the edges
+    (_d_edges), every 37th 2^31 - 1."""
+    rng = np.random.default_rng(nsym * 31 + maxlen)
+    nbs = np.zeros((rows, nsym), np.int64)
+    for i in range(rows):
+        present = int(rng.integers(1, nsym + 1))
+        lens = rng.integers(1, maxlen + 1, present)
+        if i % 5 == 0:
+            lens = np.minimum(maxlen, lens + rng.integers(0, maxlen, present))
+        nbs[i, :present] = np.sort(lens)
+        if i % 5 == 1:
+            nbs[i] = rng.permutation(nbs[i])
+        elif i % 5 == 2:
+            nbs[i] = rng.integers(1, maxlen + 1)
+        elif i % 5 == 3 and i % 2:
+            nbs[i] = 0
+    D = _d_edges(maxlen, rows, rng)
+    D[::37] = I32MAX
+    return nbs.astype(np.int32), D.astype(np.int32)
+
+
+ABSORB_CASES = ([(nsym, maxlen, order) for nsym in (1, 32, 256, 288)
+                 for maxlen in (11, 15) for order in ("sorted", "unsorted")]
+                + ["hand", "short runs", "one run", "zeros", "int32 edge"]
+                + [("pool", nsym, maxlen) for nsym, maxlen in POOL_SHAPES])
+
+
+@pytest.mark.parametrize("case", ABSORB_CASES, ids=str)
+def test_run_walk_matches_plain(case):
+    """The run walk of kraft_absorb (a numpy model mirroring the kernel)
+    equals the plain step-by-step loop exactly: nbs2 and D."""
+    nbs, D, maxlen = _absorb_case(case)
+    want_nb, want_d = ddev._kraft_absorb_plain(_t(nbs), _t(D), maxlen)
+    got_nb, got_d = _absorb_runs(nbs, D, maxlen)
+    np.testing.assert_array_equal(got_nb, want_nb.numpy())
+    np.testing.assert_array_equal(got_d, want_d.numpy())
+    if case == "short runs":   # the capped counts did pass the run ends
+        assert (got_nb[:, :2] == 1).any()
+
+
+def _weights_two_lanes(w, nxt, dnb, dfs):
+    """numpy model of weights_fse_encode (csrc/entropy_scan.cu): the next-
+    state table by symbol and state, state 1 on one lane (init at 254,
+    steps 252, 250, ..., 0) and state 2 on another (init 253, steps 251,
+    ..., 1), each saving the state it starts from; then the 256 fields in
+    stream order (the step at 252 - f, state 2 and state 1 less 64 in 6
+    bits, the closing bit), 8 a lane, placed by a prefix sum of widths and
+    ORed into 128 little-endian words."""
+    nxt, dnb, dfs = (np.asarray(t, np.int64) for t in (nxt, dnb, dfs))
+    st = np.arange(64, 128)[None, :]
+    width = (st + dnb[:, None]) >> 16
+    nxt_tab = nxt[(st >> width) + dfs[:, None]] - 64
+    nbout = (dnb + (1 << 15)) >> 16
+    init = nxt[(((nbout << 16) - dnb) >> nbout) + dfs] - 64
+    bufs, sizes = [], []
+    for row in np.asarray(w, np.int64):
+        rec = np.zeros(256, np.int64)
+        fin = [0, 0]
+        for lane in (0, 1):
+            s = init[row[254 - lane]]
+            for idx in range(252 - lane, -1, -2):
+                rec[idx] = s
+                s = nxt_tab[row[idx], s]
+            fin[lane] = s
+        vals, widths = [], []
+        for f in range(256):
+            if f <= 252:
+                s = 64 + rec[252 - f]
+                nb = (s + dnb[row[252 - f]]) >> 16
+                vals.append(s & ((1 << nb) - 1))
+                widths.append(nb)
+            else:
+                vals.append(1 if f == 255 else fin[254 - f])
+                widths.append(1 if f == 255 else 6)
+        pos = np.cumsum([0] + widths)
+        words = [0] * 128
+        for lane in range(32):
+            p = int(pos[8 * lane])
+            acc = 0
+            for i in range(8):
+                acc |= int(vals[8 * lane + i]) << int(pos[8 * lane + i] - p)
+            acc <<= p & 31
+            for q in range(4):
+                if (p >> 5) + q < 128:
+                    words[(p >> 5) + q] |= (acc >> (32 * q)) & 0xFFFFFFFF
+        bufs.append(np.array(words, "<u4").view(np.uint8))
+        sizes.append((int(pos[255]) + 1 + 7) >> 3)
+    return np.stack(bufs), np.array(sizes, np.int32)
+
+
+def test_two_lane_pack_matches_plain():
+    """The weight encode's two chains and its packing afterwards (a numpy
+    model mirroring the kernel) equal the plain loop exactly: buf and
+    size, on this file's weight rows and seeded random ones."""
+    c = zdev._consts(torch.device("cpu"))
+    w = np.concatenate([_weight_rows(), np.random.default_rng(11).integers(
+        0, 12, (16, 255))]).astype(np.int32)
+    want_buf, want_size = zdev._encode_weights_plain(_t(w))
+    buf, size = _weights_two_lanes(w, c["w_nxt"], c["w_dnb"], c["w_dfs"])
+    np.testing.assert_array_equal(buf, want_buf.numpy())
+    np.testing.assert_array_equal(size, want_size.numpy())
+
+
+def test_static_weight_table_closed():
+    """Enumerated: for every state in [64, 127] and each of the static
+    table's 12 symbols the encode index (st >> nb) + dfs lies in [0, 63]
+    with nb = (st + dnb) >> 16 in [0, 9]; each symbol's init index lies in
+    [0, 63]; every next state in [64, 127]. So the kernel's chain needs no
+    clamp, and table_closed says so."""
+    from aocl_compression_tpu_torch.ops import entropy_scan
+    c = zdev._consts(torch.device("cpu"))
+    nxt, dnb, dfs = (c[k].tolist() for k in ("w_nxt", "w_dnb", "w_dfs"))
+    assert len(dnb) == 12 and len(nxt) == 64
+    assert all(64 <= x <= 127 for x in nxt)
+    for d, f in zip(dnb, dfs):
+        for st in range(64, 128):
+            nb = (st + d) >> 16
+            assert 0 <= nb <= 9 and 0 <= (st >> nb) + f <= 63
+        nbout = (d + (1 << 15)) >> 16
+        assert 0 <= (((nbout << 16) - d) >> nbout) + f <= 63
+    assert entropy_scan.table_closed(c["w_nxt"], c["w_dnb"], c["w_dfs"])
+
+
+@pytest.mark.parametrize("opening", ["nxt below 64", "nxt past 127",
+                                     "index past 63", "index below 0",
+                                     "width past 9", "in-place edit"])
+def test_weights_wrapper_raises_on_open_table(opening):
+    """weights_fse_encode raises on a table that is not closed (before it
+    looks at the device); a closed one gets past the proof to the device
+    check, and a table edited in place after its proof is proven anew."""
+    from aocl_compression_tpu_torch.ops import entropy_scan
+    c = zdev._consts(torch.device("cpu"))
+    nxt, dnb, dfs = (c[k].clone() for k in ("w_nxt", "w_dnb", "w_dfs"))
+    w = torch.zeros((2, 255), dtype=torch.int32)
+    if opening == "in-place edit":
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            entropy_scan.weights_fse_encode(w, nxt, dnb, dfs)
+        nxt[5] = 128
+    elif opening == "nxt below 64":
+        nxt[0] = 63
+    elif opening == "nxt past 127":
+        nxt[63] = 128
+    elif opening == "index past 63":
+        dfs[11] += 64
+    elif opening == "index below 0":
+        dfs[0] -= 64
+    else:
+        dnb[3] += 10 << 16
+    assert not entropy_scan.table_closed(nxt, dnb, dfs)
+    with pytest.raises(ValueError, match="not closed"):
+        entropy_scan.weights_fse_encode(w, nxt, dnb, dfs)
+
+
 # --- card-only: the kernels against their plain loops ------------------------
 
 @pytest.fixture
@@ -263,3 +528,42 @@ def test_tables_on_card_match_cpu(cuda_device):
     got = zdev._block_huffman(lits.to(cuda_device), n.to(cuda_device))
     for g, w in zip(got, zdev._block_huffman(lits, n)):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsym,maxlen", POOL_SHAPES)
+@pytest.mark.parametrize("n", [1, 31, 33, 257])
+def test_kraft_absorb_kernel_pool_rows(cuda_device, nsym, maxlen, n):
+    """The kernel on the first n pool rows (sorted, unsorted, one run, all
+    zero; D at the edges and 2^31 - 1), one launch, equal to the plain
+    loop; NSYM 1 and 37 take the scalar staging, 383 at MAXLEN 30 is the
+    widest shape the kernel of one thread a row took, 3,778 the widest a
+    warp's 48 KB of shared memory holds now."""
+    from aocl_compression_tpu_torch.ops import entropy_scan
+    nbs, D = (_t(a[:n]) for a in _absorb_pool(nsym, maxlen))
+    want = ddev._kraft_absorb_plain(nbs, D, maxlen)
+    n0 = entropy_scan.launches["kraft_absorb"]
+    got = entropy_scan.kraft_absorb(nbs.to(cuda_device), D.to(cuda_device),
+                                    maxlen)
+    torch.cuda.synchronize()
+    assert entropy_scan.launches["kraft_absorb"] == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 257])
+def test_weights_fse_encode_kernel_rows(cuda_device, n):
+    """The kernel on the first n of this file's weight rows and seeded
+    random ones (rows of two warps' blocks, a ragged last block), one
+    launch, equal to the plain loop."""
+    from aocl_compression_tpu_torch.ops import entropy_scan
+    w = _t(np.concatenate([_weight_rows(), np.random.default_rng(
+        13).integers(0, 12, (257, 255))])[:n].astype(np.int32))
+    want = zdev._encode_weights_plain(w)
+    n0 = entropy_scan.launches["weights_fse_encode"]
+    got = zdev._encode_weights(w.to(cuda_device))
+    torch.cuda.synchronize()
+    assert entropy_scan.launches["weights_fse_encode"] == n0 + 1
+    for g, ww in zip(got, want):
+        assert torch.equal(g.cpu(), ww)
