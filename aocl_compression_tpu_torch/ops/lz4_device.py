@@ -16,7 +16,10 @@ Encode (per block, batched):
                       same hash is the k-th candidate, and its match length
                       comes from comparing the word chains. Offsets 1, 2 and
                       4 get exact run lengths by a reverse cummin, and the
-                      saturated-match ladder extends matches past the cap.
+                      saturated-match ladder extends matches past the cap
+                      (on the card: the kernels match_keys,
+                      match_candidates and match_runs around the sort,
+                      comparing bytes in place with no word chains).
   3. parse          — one candidate per G-byte tile; the greedy tile chain is
                       marked by reachability inside sub-chains of SUBM
                       tiles (_reach_from_start: the kernel subchain_reach
@@ -158,19 +161,70 @@ def _find_matches(data_u8: torch.Tensor, n: torch.Tensor, B: int,
     consider; nw_deep > 0 trims the compare chains of the s >= 2 candidates
     to nw_deep words; ext_passes > 0 runs the saturated-match extension
     ladder. Same contract as the JAX package's _find_matches.
-    """
-    dev = data_u8.device
-    N = data_u8.shape[0]
-    idx = _arange(B, dev).expand(N, B)
-    words = _window_words(data_u8, B, nw)
-    h = _hash(words[0], hash_bits)
-    key = (h << 16) | idx.to(torch.int64)
-    # the JAX key is the uint32 value cast to int32: sort in that order
-    key = torch.where(key >= (1 << 31), key - (1 << 32), key).to(_I32)
 
-    skey, perm = torch.sort(key, dim=-1)
-    swords = [torch.gather(w, 1, perm) for w in words]
+    A CUDA tensor runs the kernels match_keys, match_candidates and
+    match_runs (csrc/match_find.cu) around one torch.sort, a CPU tensor
+    their plain versions (_find_matches_plain).
+    """
+    if data_u8.is_cuda:
+        from . import match_find as mf
+        stages = (mf.match_keys, mf.match_candidates, mf.match_runs)
+        data_u8 = data_u8.contiguous()
+        n = n.to(_I32).contiguous()
+    elif data_u8.device.type == "cpu":
+        stages = _MATCH_PLAIN
+    else:
+        raise ValueError(f"_find_matches: unsupported device {data_u8.device}")
+    return _match_stages(stages, data_u8, n, B, max_off, depth, nw,
+                         small_offsets, hash_bits, nw_deep, ext_passes)
+
+
+def _find_matches_plain(data_u8: torch.Tensor, n: torch.Tensor, B: int,
+                        max_off: int = 0, depth: int = 2, nw: int = NW,
+                        small_offsets: tuple = SMALL_OFFSETS,
+                        hash_bits: int = HASH_BITS, nw_deep: int = 0,
+                        ext_passes: int = 0):
+    """PyTorch version of _find_matches on any device: the three stages'
+    plain versions around the same sort."""
+    return _match_stages(_MATCH_PLAIN, data_u8, n, B, max_off, depth, nw,
+                         small_offsets, hash_bits, nw_deep, ext_passes)
+
+
+def _match_stages(stages, data_u8, n, B, max_off, depth, nw, small_offsets,
+                  hash_bits, nw_deep, ext_passes):
+    """keys -> sort -> candidates -> runs, with the (keys, candidates,
+    runs) functions given."""
+    keys, candidates, runs = stages
+    skey = torch.sort(keys(data_u8, B, hash_bits), dim=-1).values
+    best = candidates(data_u8, skey, B, max_off, depth, nw, nw_deep)
+    return runs(data_u8, best, n, B, small_offsets, nw, ext_passes)
+
+
+def _match_keys_plain(data_u8: torch.Tensor, B: int,
+                      hash_bits: int) -> torch.Tensor:
+    """The sort key of every position, (hash << 16 | pos) as the JAX
+    package's int32 (the uint32 value wrapped): (N, B) int32. Plain
+    version of the kernel match_keys."""
+    idx = _arange(B, data_u8.device).expand(data_u8.shape[0], B)
+    h = _hash(_window_words(data_u8, B, 0)[0], hash_bits)
+    key = (h << 16) | idx.to(torch.int64)
+    return torch.where(key >= (1 << 31), key - (1 << 32), key).to(_I32)
+
+
+def _match_candidates_plain(data_u8: torch.Tensor, skey: torch.Tensor,
+                            B: int, max_off: int, depth: int, nw: int,
+                            nw_deep: int) -> torch.Tensor:
+    """Each position's best same-hash candidate from the rows' sorted keys:
+    (N, B) int32 holding (offset << 16 | length), 1 << 16 where none. The
+    k-th previous entry of the sorted row with the same hash is the k-th
+    candidate; its match length comes from comparing the window-word
+    chains carried through the sort. Plain version of the kernel
+    match_candidates."""
+    idx = _arange(B, data_u8.device).expand(data_u8.shape[0], B)
+    words = _window_words(data_u8, B, nw)
     spos = skey & 0xFFFF
+    perm = spos.to(torch.int64)   # the sort's permutation (B <= 2^16)
+    swords = [torch.gather(w, 1, perm) for w in words]
     shash = (skey >> 16) & 0xFFFF   # logical shift of the 32-bit key
 
     best_len = torch.zeros_like(idx)
@@ -191,10 +245,23 @@ def _find_matches(data_u8: torch.Tensor, n: torch.Tensor, B: int,
         best_len = torch.where(better, ml, best_len)
         best_off = torch.where(better, off, best_off)
 
-    # restore position order: spos is the sort's permutation (B <= 2^16),
-    # so a scatter by it is the JAX package's second sort keyed by spos
-    best_len = torch.empty_like(best_len).scatter_(1, perm, best_len)
-    best_off = torch.empty_like(best_off).scatter_(1, perm, best_off)
+    # restore position order: a scatter by the permutation is the JAX
+    # package's second sort keyed by spos
+    packed = (best_off.to(torch.int64) << 16) | best_len
+    packed = torch.where(packed >= (1 << 31), packed - (1 << 32), packed)
+    return torch.empty_like(best_len).scatter_(1, perm, packed.to(_I32))
+
+
+def _match_runs_plain(data_u8: torch.Tensor, best: torch.Tensor,
+                      n: torch.Tensor, B: int, small_offsets: tuple, nw: int,
+                      ext_passes: int):
+    """(mlen, moff, valid) from each position's best candidate (best as
+    _match_candidates_plain returns it): exact runs at the small offsets,
+    the saturated-match ladder, the end-of-block rules. Plain version of
+    the kernel match_runs."""
+    idx = _arange(B, data_u8.device).expand(data_u8.shape[0], B)
+    best_len = best & 0xFFFF
+    best_off = (best >> 16) & 0xFFFF
 
     # --- exact run lengths for small offsets (RLE / short periods) ---------
     d = data_u8.to(_I32)
@@ -235,6 +302,9 @@ def _find_matches(data_u8: torch.Tensor, n: torch.Tensor, B: int,
     valid = (best_len >= MIN_MATCH) & (idx <= nn - MFLIMIT - 1) & (idx < nn)
     return (torch.where(valid, best_len, 1), torch.clamp(best_off, min=1),
             valid)
+
+
+_MATCH_PLAIN = (_match_keys_plain, _match_candidates_plain, _match_runs_plain)
 
 
 def _floor_chain_nxt(cpos, cml, cvalid, aidx, shift, M, G, match_cap=0):

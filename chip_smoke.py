@@ -7,9 +7,9 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero before the last line:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build: nvcc for every CUDA source (compact.cu, zstd_scan.cu,
-     inflate_scan.cu, entropy_scan.cu, chain_scan.cu) and the host C++
-     library, started together (ptxas's registers and shared memory of
-     every kernel);
+     inflate_scan.cu, entropy_scan.cu, chain_scan.cu, match_find.cu) and
+     the host C++ library, started together (ptxas's registers and shared
+     memory of every kernel);
   3. every kernel against its plain PyTorch version, output for output:
      compact_rows (layout scan + bulk copy) at the main path's shapes
      (N=256 chunks of OUTCAP=65536, sizes from a real encode), at every
@@ -33,10 +33,20 @@ non-zero before the last line:
      input, its graph-replay time, HBM bound, longest lane's steps, µs and
      SM cycles per step and serial floor; a profiler window over one
      _grid_select call (no bmm or gemm) and the peak memory of one
-     _reach_from_start call above the memory in use before it;
+     _reach_from_start call above the memory in use before it; the match
+     kernels (csrc/match_find.cu: match_keys, match_candidates,
+     match_runs), launched once a compress call each, against the plain
+     _find_matches on the path's real call (check_matches: the whole
+     function output for output, each kernel on the kernel path's own
+     inputs; graph-replay times of each kernel, of torch.sort and of the
+     whole kernel path beside the plain versions' times and the HBM
+     bounds; the peak memory of one call of each path) and on seeded
+     adversarial rows at every encoder's setting and four more
+     (match_adversarial, B = 256 and 4,096);
   5. the bench encoder config (G=8, depth 5, nw 5, subm 64, lazy 1,
      ext_passes 5) on the same corpus, and subchain_reach against its
-     plain version on its real input (SUBM 64);
+     plain version on its real input (SUBM 64); the match kernels on its
+     real call as in phase 4 (the saturated-match ladder runs here);
   6. lz4hc: setup("lz4hc", opt_var=2, block_size=65536) at the default
      level 9 (the exact-parse encoder, G=0) on the same corpus: audit,
      launches, exact round trip, serial decode after skip_rap_frame, ratio
@@ -46,7 +56,8 @@ non-zero before the last line:
      kernel chain_marks against its plain version on the real input, with
      its times, bound, steps and serial floor as in phase 4, a profiler
      window over one _greedy_parse call (no bmm or gemm) and the peak
-     memory of one _chain_marks call; both chain kernels against their
+     memory of one _chain_marks call; the match kernels on the real call
+     (depth 11, nw 32) as in phase 4; both chain kernels against their
      plain versions on seeded adversarial rows (exits
      back into earlier or the same segment, in-segment back and self edges
      and cycles, targets below 0 and past C, exits at C, clen 0 and not a
@@ -60,12 +71,15 @@ non-zero before the last line:
      audit, launches, ratio and MB/s beside the host tier's, peak memory,
      host round trip, serial snappy_uncompress after skip_rap_frame, the
      16-block stream's sha256 against the JAX package's, per-stage device
-     times; then device decode of the stream through the API (exact,
+     times, the match kernels on the real call as in phase 4; then device
+     decode of the stream through the API (exact,
      audited, launches per batch, MB/s beside the host decoder's) and its
      stage times; chain_marks against its plain version on the decode
      batch's real input;
-  9. zlib: setup("zlib", level=1|2, opt_var=2) likewise, each stream read
-     by stdlib zlib.decompress after skip_rap_frame, the host deflate at
+  9. zlib: setup("zlib", level=1|2, opt_var=2) likewise (the match
+     kernels on level 1's real call, max_off 32768, as in phase 4), each
+     stream read by stdlib zlib.decompress after skip_rap_frame, the host
+     deflate at
      levels 1 and 6 timed on the same corpus, the kraft_absorb kernel's
      launches in the level-2 calls, and the launches and device time of
      the dynamic path's two _kraft_lengths calls (the kernel path); the
@@ -95,7 +109,8 @@ non-zero before the last line:
      entropy-table kernels' (kraft_absorb, weights_fse_encode) launches,
      ratio and MB/s beside the host tier's at level 1, peak memory, the
      16-block stream's sha256 against the JAX package's, per-stage device
-     times; device decode through the API (exact, audited, the two decode
+     times, the match kernels on the real call (depth 8) as in phase 4;
+     device decode through the API (exact, audited, the two decode
      scan kernels' launches, MB/s beside the host decoder's, frames on each
      route) and its stage times; then each of the three scan kernels of
      csrc/zstd_scan.cu against its plain loop on the first 16 blocks of the
@@ -119,7 +134,9 @@ non-zero before the last line:
      opt_var=2) (the device match-finder assist): audit, ratio, MB/s (one
      call each: the host lzma and the device tiers take seconds), round
      trips through the API and stdlib bz2 / lzma, peak memory, the
-     16-block stream's sha256 against the JAX package's, and stage times
+     16-block stream's sha256 against the JAX package's, the match kernels
+     on the lzma assist's real call (depth 16) as in phase 4, and stage
+     times
      (the BWT on the card against bz2_prepare / bz2_emit on the host;
      _find_matches and _grid_parse at G = 1 against lzma_compress_cand);
  12. the host surface on the card, on the same corpus: the LZ4 frame at
@@ -131,7 +148,8 @@ non-zero before the last line:
      compaction and chain_marks at the frame path's shape (N = 1 block;
      chain_marks at N = 1 x 65,536, where most of its launches run)
      against their plain versions, chain_marks with its graph-replay
-     time, HBM bound and serial floor; the whole corpus timed once beside
+     time, HBM bound and serial floor, the match kernels at the same
+     shape as in phase 4; the whole corpus timed once beside
      the host-tier frame and
      phase 4's RAP path), native_api.LZ4_compress_fast(data, 2) (equal to
      setup("lz4", opt_var=2, enable_rap=False), decoded by
@@ -160,9 +178,10 @@ non-zero before the last line:
      scan kernels with theirs in phases 10 and 13, inflate_symbol_scan with
      its own in phase 9, kraft_absorb with its launches in phases 9, 10
      and 13 (its times at zlib 2's 288-symbol call), weights_fse_encode
-     with its own in phases 10 and 13, and subchain_reach (its times at the
-     main path's input) and chain_marks (at lz4hc 9's) with their launches
-     summed over every path driven with the counts set to 0;
+     with its own in phases 10 and 13, subchain_reach (its times at the
+     main path's input) and chain_marks (at lz4hc 9's), and the three match
+     kernels (at the main path's call), with their launches summed over
+     every path driven with the counts set to 0;
  15. last line: {"ok": true, "device": {...}}.
 """
 
@@ -259,10 +278,17 @@ def corpus(total: int, seed: int = 42) -> bytes:
 
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of fn() over iters launches, after 0.3 s of
-    warm-up launches (an idle card's clocks ramp up under load)."""
+    warm-up launches (an idle card's clocks ramp up under load; at most 8
+    of them in flight, so a call of milliseconds does not queue minutes of
+    warm-up behind the host's loop)."""
     warm_end = time.perf_counter() + 0.3
+    flight = []
     while time.perf_counter() < warm_end:
         fn()
+        flight.append(torch.cuda.Event())
+        flight[-1].record()
+        if len(flight) > 8:
+            flight.pop(0).synchronize()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -295,6 +321,29 @@ def best_s(fn, iters: int = 3):
     return out, min(ts)
 
 
+def device_call_ms(fn):
+    """(result, device ms) of one fn() call by CUDA events."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def peak_above(fn):
+    """Peak device memory (bytes) of one fn() call above the memory in use
+    before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -311,7 +360,7 @@ def phase_card():
 def phase_build():
     from aocl_compression_tpu_torch.ops import (chain_scan, compact,
                                                 entropy_scan, inflate_scan,
-                                                zstd_scan)
+                                                match_find, zstd_scan)
     from aocl_compression_tpu_torch.runtime import native
 
     def timed(fn):
@@ -325,13 +374,14 @@ def phase_build():
     def phases():
         ENTROPY_PHASES["lib"] = entropy_phases.build(ROOT)
 
-    with concurrent.futures.ThreadPoolExecutor(7) as ex:
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
         nvcc = ex.submit(timed, compact.build)
         scan = ex.submit(timed, zstd_scan.build)
         inf = ex.submit(timed, inflate_scan.build)
         ent = ex.submit(timed, entropy_scan.build)
         stamped = ex.submit(timed, phases)
         chain = ex.submit(timed, chain_scan.build)
+        match = ex.submit(timed, match_find.build)
         host = ex.submit(timed, native.get_lib)
         print(f"[build] nvcc csrc/compact.cu (sm_90a): {nvcc.result():.2f} s; "
               f"nvcc csrc/zstd_scan.cu (sm_90a): {scan.result():.2f} s; "
@@ -340,10 +390,11 @@ def phase_build():
               f"(its copy with phase stamps, scripts/entropy_phases.py: "
               f"{stamped.result():.2f} s); "
               f"nvcc csrc/chain_scan.cu (sm_90a): {chain.result():.2f} s; "
+              f"nvcc csrc/match_find.cu (sm_90a): {match.result():.2f} s; "
               f"host library (make -C csrc): {host.result():.2f} s")
     for log in (compact.build_log, zstd_scan.build_log,
                 inflate_scan.build_log, entropy_scan.build_log,
-                chain_scan.build_log):
+                chain_scan.build_log, match_find.build_log):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
@@ -656,12 +707,7 @@ def chain_window(label, fn, mem_label, mem_fn, matrices_bytes):
     mm = [k for k in ops if "gemm" in k.lower() or "bmm" in k.lower()]
     ours = [k for k in ops if "chain_marks_kernel" in k
             or "subchain_reach_kernel" in k]
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    mem_fn()
-    torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - base
+    extra = peak_above(mem_fn)
     print(f"[chain kernel] profiler window over one {label} call ({lost} "
           f"windows with no device event profiled again): "
           f"{sum(c for c, _ in ops.values())} device launches, "
@@ -760,13 +806,211 @@ def chain_adversarial(dev):
               f"seeded adversarial rows of M={M}, SUBM {subm}: equal")
 
 
+# kernel name -> its check at the main path's call (the kernels line's
+# times), with the largest error of all the match kernels' checks
+MATCH = {}
+
+# Every setting an encoder calls _find_matches with, and the options no
+# encoder of the API sets (the seeded adversarial rows go through each).
+MATCH_SETTINGS = {
+    "lz4 main path, snappy G=4": dict(depth=4, nw=8),
+    "snappy G=0 (defaults)": dict(),
+    "bench config": dict(depth=5, nw=5, ext_passes=5),
+    "lz4hc 9": dict(depth=11, nw=32),
+    "zlib 1-2": dict(max_off=32768),
+    "zstd 1": dict(depth=8),
+    "lzma assist": dict(depth=16),
+    "nw_deep 2": dict(depth=5, nw=5, nw_deep=2),
+    "hash_bits 16": dict(depth=4, nw=16, nw_deep=8, hash_bits=16),
+    "max_off 40": dict(max_off=40),
+    "offsets 1, 2, 4, 8": dict(depth=3, nw=4, small_offsets=(1, 2, 4, 8),
+                               ext_passes=3),
+}
+
+
+def find_matches_call(run):
+    """(args, kwargs) of the first lz4_device._find_matches call while
+    run() runs, with the defaults filled in."""
+    import inspect
+
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    seen = []
+    orig = ld._find_matches
+
+    def wrapped(*args, **kw):
+        seen.append((args, kw))
+        return orig(*args, **kw)
+
+    ld._find_matches = wrapped
+    try:
+        run()
+    finally:
+        ld._find_matches = orig
+    bound = inspect.signature(orig).bind(*seen[0][0], **seen[0][1])
+    bound.apply_defaults()
+    kw = dict(bound.arguments)
+    return (kw.pop("data_u8"), kw.pop("n"), kw.pop("B")), kw
+
+
+def match_bytes(N, Bk):
+    """Each input read once, each output written once: data (N, Bk) uint8,
+    key / skey / best (N, Bk) int32, n (N,) int32, mlen and moff int32 and
+    valid bool; torch.sort writes int64 indices beside the values."""
+    nb = N * Bk
+    return {"match_keys": 5 * nb, "sort": 16 * nb, "match_candidates": 9 * nb,
+            "match_runs": 14 * nb + 4 * N, "_find_matches": 10 * nb + 4 * N}
+
+
+def check_matches(label, run, main=False):
+    """The match kernels against their plain versions on a path's real
+    _find_matches call (captured while run() runs): the whole function
+    output for output, and each kernel on the kernel path's own inputs;
+    graph-replay times of each kernel, the sort and the whole kernel path,
+    the plain versions' (device events, one call), the HBM bounds and the
+    peak memory of one call of each path. main: the kernels line's
+    times."""
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.ops import match_find as mf
+    (data, n, Bk), kw = find_matches_call(run)
+    data, n = data.contiguous(), n.to(torch.int32).contiguous()
+    N = data.shape[0]
+    want, plain_ms = device_call_ms(
+        lambda: ld._find_matches_plain(data, n, Bk, **kw))
+    err = check_equal(f"_find_matches ({label})",
+                      list(ld._find_matches(data, n, Bk, **kw)), list(want))
+    del want
+    hb = kw["hash_bits"]
+    cand = (Bk, kw["max_off"], kw["depth"], kw["nw"], kw["nw_deep"])
+    runs = (Bk, kw["small_offsets"], kw["nw"], kw["ext_passes"])
+    key = mf.match_keys(data, Bk, hb)
+    skey = torch.sort(key, dim=-1).values
+    best = mf.match_candidates(data, skey, *cand)
+    stages = {
+        "match_keys": (lambda: mf.match_keys(data, Bk, hb),
+                       lambda: ld._match_keys_plain(data, Bk, hb)),
+        "match_candidates": (
+            lambda: mf.match_candidates(data, skey, *cand),
+            lambda: ld._match_candidates_plain(data, skey, *cand)),
+        "match_runs": (lambda: mf.match_runs(data, best, n, *runs),
+                       lambda: ld._match_runs_plain(data, best, n, *runs))}
+    nbytes = match_bytes(N, Bk)
+    res = {}
+    for name, (kernel, plain) in stages.items():
+        want, p_ms = device_call_ms(plain)
+        got = kernel()
+        e = check_equal(f"{name} ({label})", list(got) if isinstance(
+            got, tuple) else [got], list(want) if isinstance(
+            want, tuple) else [want])
+        del want, got
+        res[name] = dict(max_abs_err=e, ms=graph_ms(kernel), plain_ms=p_ms,
+                         bound_ms=nbytes[name] / HBM_BYTES_PER_S * 1e3)
+    sort_ms = graph_ms(lambda: torch.sort(key, dim=-1))
+    whole_ms = graph_ms(lambda: ld._find_matches(data, n, Bk, **kw))
+    mem = peak_above(lambda: ld._find_matches(data, n, Bk, **kw))
+    mem_plain = peak_above(lambda: ld._find_matches_plain(data, n, Bk, **kw))
+    setting = ", ".join(f"{k} {v}" for k, v in kw.items())
+    bound = nbytes["_find_matches"] / HBM_BYTES_PER_S * 1e3
+    print(f"[match kernel] _find_matches ({label}: N={N}, B={Bk}, {setting}) "
+          f"vs plain on the path's real call: equal on mlen, moff, valid; "
+          f"kernel path {whole_ms:.4f} ms (CUDA-graph replay: the three "
+          f"kernels and torch.sort), plain {plain_ms:.2f} ms (one call, "
+          f"device events), bound {bound:.4f} ms "
+          f"(data and n read, mlen, moff, valid written once at 3.35 "
+          f"TB/s); peak memory of one call above the memory in use before "
+          f"it: kernel path {mem / 1e6:.1f} MB, plain {mem_plain / 1e6:.1f} "
+          f"MB")
+    for name, r in res.items():
+        print(f"[match kernel] {name} ({label}) vs its plain version on the "
+              f"kernel path's inputs: equal; kernel {r['ms']:.4f} ms (CUDA-"
+              f"graph replay), plain {r['plain_ms']:.2f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({nbytes[name]} B at 3.35 TB/s)")
+    print(f"[match kernel] torch.sort of the keys ({label}): {sort_ms:.4f} "
+          f"ms (CUDA-graph replay; library, values and int64 indices), "
+          f"bound {nbytes['sort'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    for name, r in res.items():
+        prev = MATCH.get(name)
+        e = max(r["max_abs_err"], err, prev["max_abs_err"] if prev else 0)
+        if main or prev is None:
+            MATCH[name] = dict(r)
+        MATCH[name]["max_abs_err"] = e
+
+
+def match_rows_adversarial(Bk: int, seed: int):
+    """Seeded adversarial rows (N, Bk) uint8 and their n, as in
+    tests/test_torch_match_find.py: text with nonzero bytes past n, an
+    all-equal row, two colliding 4-byte words (one 16-bit hash) before a
+    common suffix, runs at offsets 4, 2 and 1 across the end-of-block
+    clamps (n = Bk - 37, junk after), a far repeat (the ladder), repeats at
+    offsets 39, 40 and 41, random bytes."""
+    rng = np.random.default_rng(seed)
+    words = np.frombuffer(b"the of compression data block match hash ",
+                          np.uint8)
+    text = lambda k: words[rng.integers(0, words.size, k)]  # noqa: E731
+    rows, ns = [], []
+    a = rng.integers(1, 256, Bk).astype(np.uint8)
+    a[:Bk * 11 // 16] = text(Bk * 11 // 16)
+    rows.append(a), ns.append(Bk * 11 // 16)
+    rows.append(np.full(Bk, 97, np.uint8)), ns.append(Bk)
+    seen = {}
+    while True:
+        w = int(rng.integers(1, 1 << 32))
+        h = ((w * 2654435761) & 0xFFFFFFFF) >> 16
+        if h in seen and seen[h] != w:
+            pair = [np.frombuffer(np.uint32(x).tobytes(), np.uint8)
+                    for x in (seen[h], w)]
+            break
+        seen[h] = w
+    a, suffix = text(Bk), rng.integers(0, 256, 12).astype(np.uint8)
+    for i in range(3, Bk - 32, 32):
+        a[i:i + 4] = pair[(i // 32) % 2]
+        a[i + 4:i + 16] = suffix
+    rows.append(a), ns.append(Bk)
+    a = rng.integers(1, 256, Bk).astype(np.uint8)
+    n = Bk - 37
+    a[:n - 120] = text(n - 120)
+    a[n - 110:n - 70] = np.tile(np.frombuffer(b"wxyz", np.uint8), 10)
+    a[n - 60:n - 2] = np.tile(np.frombuffer(b"ab", np.uint8), 29)
+    a[n - 30:n + 10] = 122
+    rows.append(a), ns.append(n)
+    seg = rng.integers(0, 256, min(400, Bk // 3)).astype(np.uint8)
+    rows.append(np.concatenate([seg, text(Bk // 8), seg, seg,
+                                text(Bk)])[:Bk]), ns.append(Bk)
+    a = rng.integers(0, 256, Bk).astype(np.uint8)
+    for p0, dist in ((20, 40), (90, 41), (160, 39)):
+        p0 = p0 * Bk // 256
+        a[p0 + dist:p0 + dist + 10] = a[p0:p0 + 10]
+    rows.append(a), ns.append(Bk)
+    rows.append(rng.integers(0, 256, Bk).astype(np.uint8)), ns.append(Bk - 3)
+    return (torch.from_numpy(np.stack(rows)),
+            torch.from_numpy(np.array(ns, np.int32)))
+
+
+def match_adversarial(dev):
+    """The kernel path against the plain version on seeded adversarial rows
+    at every setting of MATCH_SETTINGS, at B = 256 and 4,096."""
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    err = 0
+    for Bk, seed in ((256, 31), (4096, 32)):
+        data, n = (x.to(dev) for x in match_rows_adversarial(Bk, seed))
+        for name, kw in MATCH_SETTINGS.items():
+            err = max(err, check_equal(
+                f"_find_matches (adversarial, B={Bk}, {name})",
+                list(ld._find_matches(data, n, Bk, **kw)),
+                list(ld._find_matches_plain(data, n, Bk, **kw))))
+        print(f"[match kernel] _find_matches vs plain on {data.shape[0]} "
+              f"seeded adversarial rows of B={Bk} at {len(MATCH_SETTINGS)} "
+              f"settings: equal")
+    for st in MATCH.values():
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+
+
 def phase_main(data: bytes, blocks, arr, lens):
     import aocl_compression_tpu_torch as act
     from aocl_compression_tpu_torch.codecs.lz4 import _device_bodies
     from aocl_compression_tpu_torch.parallel import container
     from aocl_compression_tpu_torch.runtime import native
 
-    from aocl_compression_tpu_torch.ops import chain_scan
+    from aocl_compression_tpu_torch.ops import chain_scan, match_find
     from aocl_compression_tpu_torch.ops import lz4_device as ld
 
     dev = arr.device
@@ -781,6 +1025,9 @@ def phase_main(data: bytes, blocks, arr, lens):
     if chain_scan.launches["subchain_reach"] != 3:
         raise AssertionError("subchain_reach did not launch once per "
                              "compress call")
+    if any(v != 3 for v in match_find.launches.values()):
+        raise AssertionError(f"the match kernels did not launch once per "
+                             f"compress call: {match_find.launches}")
     d, d_s = best_s(lambda: act.decompress(h, c))
     if d != data:
         raise AssertionError("decompress did not return the input")
@@ -807,6 +1054,8 @@ def phase_main(data: bytes, blocks, arr, lens):
           "the stitch and RAP after the fetch; the d2h copies are pinned): "
           + fmt_stages(stage))
     STREAMS["lz4"] = c
+    check_matches("lz4 main path", lambda: act.compress(h, data), main=True)
+    match_adversarial(dev)
 
     # the chain marking of the main path's encode: subchain_reach on its
     # real input, and one _grid_select call (device ops, memory)
@@ -850,6 +1099,7 @@ def phase_bench(data: bytes, blocks, arr, lens):
     nxt, subm = capture(lz4_device, "_reach_from_start",
                         lambda: enc(arr, lens))[0]
     check_reach(f"bench config, SUBM {subm}", nxt, subm)
+    check_matches("bench config", lambda: enc(arr, lens))
 
 
 def rap_stream(chunks, dlens, pre=b""):
@@ -898,30 +1148,33 @@ def fmt_stages(stage):
 
 def reset_counts():
     """Every kernel launch count (compact.launches, zstd_scan.launches,
-    inflate_scan.launches, entropy_scan.launches, chain_scan.launches) to
-    0."""
+    inflate_scan.launches, entropy_scan.launches, chain_scan.launches,
+    match_find.launches) to 0."""
     from aocl_compression_tpu_torch.ops import (chain_scan, compact,
                                                 entropy_scan, inflate_scan,
-                                                zstd_scan)
+                                                match_find, zstd_scan)
     compact.launches = 0
     for counts in (zstd_scan.launches, inflate_scan.launches,
-                   entropy_scan.launches, chain_scan.launches):
+                   entropy_scan.launches, chain_scan.launches,
+                   match_find.launches):
         for k in counts:
             counts[k] = 0
 
 
-# The chain kernels' launches summed over every path run with the counts set
-# to 0 just before (run_path, counted, in_turns): the kernels line's counts.
-CHAIN_LAUNCHES = {"subchain_reach": 0, "chain_marks": 0}
+# The chain and match kernels' launches summed over every path run with the
+# counts set to 0 just before (run_path, counted, in_turns): the kernels
+# line's counts.
+PATH_LAUNCHES = {"subchain_reach": 0, "chain_marks": 0, "match_keys": 0,
+                 "match_candidates": 0, "match_runs": 0}
 
 
-def tally_chain():
-    """chain_scan.launches since the last reset_counts(), added to
-    CHAIN_LAUNCHES; returns them."""
-    from aocl_compression_tpu_torch.ops import chain_scan
-    got = dict(chain_scan.launches)
+def tally_paths():
+    """chain_scan.launches and match_find.launches since the last
+    reset_counts(), added to PATH_LAUNCHES; returns them."""
+    from aocl_compression_tpu_torch.ops import chain_scan, match_find
+    got = dict(chain_scan.launches, **match_find.launches)
     for k, v in got.items():
-        CHAIN_LAUNCHES[k] += v
+        PATH_LAUNCHES[k] += v
     return got
 
 
@@ -932,7 +1185,7 @@ def run_path(label, fn, hits_want, calls=3, per_call=None):
     compact_rows launches, peak device GB); the scan kernels' counts stay in
     zstd_scan.launches, inflate_scan.launches and entropy_scan.launches
     for the caller to read (the chain kernels' are also added to
-    CHAIN_LAUNCHES). Fails unless every audit
+    PATH_LAUNCHES). Fails unless every audit
     name in hits_want was hit `calls` times (times per_call[name] where
     given)."""
     from aocl_compression_tpu_torch.ops import compact
@@ -948,11 +1201,11 @@ def run_path(label, fn, hits_want, calls=3, per_call=None):
         hits = dispatch.audit_hits()
     finally:
         dispatch.enable_audit(False)
-    chain = tally_chain()
+    chain = tally_paths()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
-          f"compact_rows launches in {calls} calls: {launches}; chain "
-          f"kernels' launches: {json.dumps(chain)}")
+          f"compact_rows launches in {calls} calls: {launches}; chain and "
+          f"match kernels' launches: {json.dumps(chain)}")
     for name in hits_want:
         if hits.get(name) != calls * (per_call or {}).get(name, 1):
             raise AssertionError(f"{label}: {name} was not hit as often as "
@@ -967,6 +1220,7 @@ def phase_lz4hc(data: bytes, blocks, arr, lens):
     from aocl_compression_tpu_torch.codecs.lz4 import _device_bodies
     from aocl_compression_tpu_torch.codecs.lz4hc import device_params
     from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.ops import match_find
     from aocl_compression_tpu_torch.parallel import container
     from aocl_compression_tpu_torch.runtime import native
 
@@ -978,6 +1232,9 @@ def phase_lz4hc(data: bytes, blocks, arr, lens):
     if launches != 2 * 3:
         raise AssertionError("lz4hc: compact_rows did not launch its two "
                              "kernels once per compress call")
+    if any(v != 3 for v in match_find.launches.values()):
+        raise AssertionError(f"lz4hc: the match kernels did not launch once "
+                             f"per compress call: {match_find.launches}")
     if act.decompress(h, c) != data:
         raise AssertionError("lz4hc: decompress did not return the input")
     if native.lz4_decompress(container.skip_rap_frame(c), len(data)) != data:
@@ -1005,6 +1262,7 @@ def phase_lz4hc(data: bytes, blocks, arr, lens):
                              "the API's")
     print("[lz4hc] stage times, ms (min of 3; device events, host clock for "
           "the stitch and RAP after the fetch): " + fmt_stages(stage))
+    check_matches("lz4hc 9", lambda: act.compress(h, data))
 
     # mem_limit bounds the device batches (here two halves of the corpus)
     # and leaves the stream as it is
@@ -1172,6 +1430,7 @@ def phase_snappy(data: bytes, blocks, dev):
           f"exact, serial decode exact; peak device memory {peak_gb:.2f} GB")
     check_pinned("snappy", act.compress(h, data[:PINNED_BLOCKS * B]))
     STREAMS["snappy"] = c
+    check_matches("snappy", lambda: act.compress(h, data))
 
     stage, stream = staged(
         lambda rec: _device_frags(blocks, 2, dev, mark=rec),
@@ -1232,14 +1491,7 @@ def check_rows(tag, label, kernel, plain, args, nbytes, steps):
     equal; both return tuples), the kernel's graph-replay time, the plain
     version's (device events, one call), the HBM bound and the serial
     floor: dict(max_abs_err, ms, plain_ms, bound_ms, steps, ...)."""
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    want = plain(*args)
-    t1.record()
-    torch.cuda.synchronize()
-    plain_ms = t0.elapsed_time(t1)
+    want, plain_ms = device_call_ms(lambda: plain(*args))
     got = kernel(*args)
     torch.cuda.synchronize()
     err = check_equal(label, list(got), list(want))
@@ -1435,6 +1687,8 @@ def phase_zlib(data: bytes, blocks, dev):
               f"in 3 calls: {kraft}")
         check_pinned(label, act.compress(h, data[:PINNED_BLOCKS * B]))
         streams[level] = STREAMS[label] = c
+        if level == 1:   # level 2 calls the match finder as level 1 does
+            check_matches("zlib 1", lambda: act.compress(h, data))
         stage, stream = staged(
             lambda rec: _device_chunks(blocks, level, dev, mark=rec),
             stages[level],
@@ -1715,6 +1969,8 @@ def phase_bzip2_lzma(data: bytes, dev):
               f"{peak_gb:.2f} GB")
         check_pinned(f"{method} level {level}",
                      act.compress(h, data[:PINNED_BLOCKS * B]))
+        if method == "lzma":
+            check_matches("lzma 6 assist", lambda: act.compress(h, data))
         stage, _, out = seq_stages(staged_run, calls=1)
         if out != c:
             raise AssertionError(f"{method}: staged device tier stream "
@@ -1952,6 +2208,7 @@ def phase_zstd(data: bytes, blocks, dev):
           f"{ent['weights_fse_encode']}")
     check_pinned("zstd level 1", act.compress(h, data[:PINNED_BLOCKS * B]))
     STREAMS["zstd level 1"] = c
+    check_matches("zstd 1", lambda: act.compress(h, data))
 
     stage, _, frames = seq_stages(
         lambda rec: _device_frames(blocks, 1, dev, mark=rec))
@@ -2157,10 +2414,10 @@ def counted(label, fn, hits_want):
         hits = dispatch.audit_hits()
     finally:
         dispatch.enable_audit(False)
-    chain = tally_chain()
+    chain = tally_paths()
     print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
-          f"compact_rows launches: {launches}; chain kernels' launches: "
-          f"{json.dumps(chain)}")
+          f"compact_rows launches: {launches}; chain and match kernels' "
+          f"launches: {json.dumps(chain)}")
     for name, want in hits_want.items():
         if hits.get(name) != want:
             raise AssertionError(f"{label}: {name} was hit "
@@ -2273,6 +2530,8 @@ def phase_surface(data: bytes, dev):
     # launches), against the plain version, timed beside its bound
     check_marks("the frame path, one frame block",
                 *capture(ld, "_chain_marks", lambda: frame(pin[:B]))[0])
+    # and its match finder (N = 1 x 65,536)
+    check_matches("the frame path, one frame block", lambda: frame(pin[:B]))
 
     # the whole corpus once (256 device calls), beside the host-tier frame
     # and the RAP lz4 path of phase 4
@@ -2445,7 +2704,7 @@ def in_turns(single, multi):
         dispatch.enable_audit(False)
     n, scans = compact.launches, dict(zstd_scan.launches,
                                       **entropy_scan.launches)
-    tally_chain()
+    tally_paths()
     times["multi"] = [t, best_s(multi, 1)[1]]
     times["single"].append(best_s(single, 1)[1])
     return res, times, hits, n, scans
@@ -2679,6 +2938,11 @@ def main():
 
     kind = phase_card()
     phase_build()
+    t_start = time.perf_counter()
+
+    def lap(name):
+        print(f"[time] {name} done, {time.perf_counter() - t_start:.1f} s "
+              f"after the build", flush=True)
 
     data = corpus(B * N)
     blocks = [data[i * B:(i + 1) * B] for i in range(N)]
@@ -2720,22 +2984,33 @@ def main():
     del zo
     kernel = phase_kernel(out, sizes, slices)
     del slices
+    lap("phase 3")
     paths = {}
     paths["lz4"], c_lz4 = phase_main(data, blocks, arr, lens)
+    lap("phase 4")
     phase_bench(data, blocks, arr, lens)
+    lap("phase 5")
     paths["lz4hc"], c_hc, _ = phase_lz4hc(data, blocks, arr, lens)
+    lap("phase 6")
     paths["lz4/lz4hc device decode"] = phase_decode(
         data, {"lz4": c_lz4, "lz4hc": c_hc}, dev)
+    lap("phase 7")
     paths["snappy encode + device decode"] = phase_snappy(data, blocks, dev)
+    lap("phase 8")
     (paths["zlib levels 1 and 2"], paths["zlib device inflate"],
      inflate, kraft) = phase_zlib(data, blocks, dev)
+    lap("phase 9")
     (paths["zstd level 1 encode + device decode"], scans,
      entropy) = phase_zstd(data, blocks, dev)
+    lap("phase 10")
     phase_bzip2_lzma(data, dev)
+    lap("phase 11")
     surface, frame_err = phase_surface(data, dev)
     paths.update(surface)
+    lap("phase 12")
     multi, scans_multi = phase_multi(data, blocks, dev)
     paths.update(multi)
+    lap("phase 13")
     scans["fse_encode_scan"]["launches"] += scans_multi["fse_encode_scan"]
     # kraft_absorb's entry: its times at zlib 2's 288-symbol call, its
     # launches and error over every path and shape
@@ -2793,16 +3068,28 @@ def main():
         "subchain_reach": "aocl_compression_tpu/ops/lz4_device.py:516, :352",
         "chain_marks": "aocl_compression_tpu/ops/lz4_device.py:832, :849"}
     for name, st in CHAIN.items():
-        if not CHAIN_LAUNCHES[name]:
+        if not PATH_LAUNCHES[name]:
             raise AssertionError(f"{name} was never launched on the paths")
         kernels.append(dict(
             name=name, route="cuda",
             source="aocl_compression_tpu_torch/csrc/chain_scan.cu",
-            replaces=replaces[name], launches=CHAIN_LAUNCHES[name],
+            replaces=replaces[name], launches=PATH_LAUNCHES[name],
             max_abs_err=st["max_abs_err"], ms=st["ms"],
             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by="bytes", library_ms=None))
-    print("[paths] chain kernels' launches: " + json.dumps(CHAIN_LAUNCHES))
+    for name in ("match_keys", "match_candidates", "match_runs"):
+        if not PATH_LAUNCHES[name]:
+            raise AssertionError(f"{name} was never launched on the paths")
+        st = MATCH[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aocl_compression_tpu_torch/csrc/match_find.cu",
+            replaces="aocl_compression_tpu/ops/lz4_device.py:138-243",
+            launches=PATH_LAUNCHES[name], max_abs_err=st["max_abs_err"],
+            ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by="bytes", library_ms=None))
+    print("[paths] chain and match kernels' launches: "
+          + json.dumps(PATH_LAUNCHES))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

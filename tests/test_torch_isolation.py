@@ -28,7 +28,7 @@ from aocl_compression_tpu_torch.ops import (bwt_device,  # noqa
                                             entropy_scan, inflate_device,
                                             inflate_scan,
                                             lz4_device, lzma_assist,
-                                            snappy_device,
+                                            match_find, snappy_device,
                                             zstd_decode_device, zstd_device,
                                             zstd_scan)
 from aocl_compression_tpu_torch.codecs import (snappy,  # noqa
