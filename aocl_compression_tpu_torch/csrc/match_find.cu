@@ -1,5 +1,4 @@
-// The match finder of every device encoder, as three kernels around one
-// library sort.
+// The match finder of every device encoder, as three kernels.
 //
 // Replaces the JAX package's _find_matches (XLA code there, not a Pallas
 // kernel): aocl_compression_tpu/ops/lz4_device.py:138-243. For each block
@@ -11,23 +10,41 @@
 // strictly longer match winning; then exact run lengths at the small
 // offsets, the saturated-match ladder and the end-of-block rules.
 //
-// The port's plain version (ops/lz4_device._match_*_plain) carries nw+1
-// window-word tensors of the whole batch through the sort and shifts them
-// once per candidate: several hundred passes over N x B int32 tensors. The
-// function itself needs the input bytes, the keys and the outputs. So:
-//   match_keys        one thread a position: the key (hash << 16 | p) as the
-//                     JAX package's int32; the caller sorts each row of
-//                     keys (torch.sort), which groups a hash's positions in
-//                     increasing order;
+// The port's plain version (ops/lz4_device._match_*_plain) sorts each row's
+// keys with torch.sort and carries nw+1 window-word tensors of the whole
+// batch through the sort, shifting them once per candidate: several hundred
+// passes over N x B int32 tensors. The function itself needs the input
+// bytes, the keys and the outputs. So:
+//   match_keys        a thread-block cluster a row (8 CTAs for a lone row,
+//                     one from 67 rows on) gives the row's keys (hash << 16
+//                     | p, the JAX package's int32) already in ascending
+//                     order, as torch.sort of them would: a stable LSD
+//                     counting sort of the positions by the hash's 8-bit
+//                     digits (one pass at hash_bits <= 8, two above) in
+//                     shared memory (each CTA: the row's bytes, its share of
+//                     the positions between the passes as 16-bit words,
+//                     per-warp digit counts); each warp counts and then
+//                     places a run of consecutive 32-element tiles, a lane
+//                     at its digit's next slot plus its rank among the
+//                     lanes of its tile with the same digit (nine ballots),
+//                     the CTAs' digit counts combined through distributed
+//                     shared memory, so equal hashes keep position order
+//                     without any sort;
 //   match_candidates  a CTA a (row, slice of sorted entries) stages the row's
 //                     bytes and 4*nw+8 zero bytes in shared memory (65,680
-//                     B at B = 65,536, nw = 32) and gives each sorted entry
-//                     to one thread, which walks the entries before it
-//                     until the hash changes or depth is reached and
-//                     compares bytes in place, a word at a time (two aligned
-//                     shared words and a funnel shift per word); it writes
+//                     B at B = 65,536, nw = 32); a warp takes consecutive
+//                     sorted entries, one a lane, behind a halo of the
+//                     min(depth, 16) entries before them, so candidate s of
+//                     the entry in lane l is the entry in lane l - s; each
+//                     lane loads its own window once, word by word as the
+//                     warp's compares first reach it (kept in registers:
+//                     the kernel is instantiated for nw <= 8, 16 and 32),
+//                     and compares it with candidate s's window taken by
+//                     __shfl_up_sync, while a warp vote says some lane is
+//                     still equal (words past 32 and candidates past the
+//                     halo are compared in shared memory); it writes
 //                     (offset << 16 | length) at position p, one word a
-//                     position (the sort's positions are a permutation);
+//                     position (the sorted positions are a permutation);
 //   match_runs        a CTA a row: the row in shared memory, each warp a
 //                     run of 32-position tiles; a disagreement mask per tile
 //                     and offset from one ballot, the first disagreement of
@@ -39,24 +56,35 @@
 //                     forward at stride CAPV = 4 + 4*nw over a bitmap of
 //                     the row's links in shared memory, and the
 //                     end-of-block rules write the outputs.
-// What bounds them: bytes for match_keys and match_runs (each reads the
-// input once and writes its outputs once, coalesced); match_candidates'
-// compares run in shared memory and its result stores are scattered (one
-// 4-byte word at each position of the permutation).
+// What bounds them: bytes (each reads the input once and writes its outputs
+// once). match_keys' passes are warp instructions on shared memory;
+// match_candidates' compares are shuffles between registers, its result
+// stores are scattered (one 4-byte word at each position of the
+// permutation), and so are match_keys' last pass's key stores.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr uint32_t kHashMul = 2654435761u;
 constexpr int kMinMatch = 4;
 constexpr int kLastLiterals = 5;
 constexpr int kMfLimit = 12;
 constexpr int kMaxOffsets = 8;       // small offsets match_runs takes
-constexpr int kKeyThreads = 256;
+constexpr int kKeyThreads = 1024;    // match_keys: a CTA of a row's cluster
+constexpr int kKeyWarps = kKeyThreads / 32;
+constexpr int kMaxCluster = 8;       // match_keys' CTAs a row
+constexpr int kDigits = 256;          // 8-bit digits of the hash
+// a digit's count in each warp, then (column kKeyWarps) in the CTA
+constexpr int kHistStride = kKeyWarps + 1;
+constexpr int kHistWords = kDigits * kHistStride;
 constexpr int kCandThreads = 512;
-constexpr int kMinSlice = 512;       // sorted entries a CTA at the least
+constexpr int kMaxHalo = 16;         // candidates a lane takes by shuffles
+constexpr int kMinSlice = 256;       // sorted entries a CTA at the least
 constexpr int kMaxRunThreads = 1024;
 constexpr int kMaxSmem = 232448;     // a block's most dynamic shared memory
 constexpr int kMaxDevices = 64;
@@ -105,23 +133,186 @@ __device__ __forceinline__ int common_bytes(const uint32_t* w, int a, int b,
   return 4 * nwords;
 }
 
-__global__ void __launch_bounds__(kKeyThreads)
-match_keys_kernel(const uint8_t* __restrict__ data, int32_t* __restrict__ key,
-                  long long total, int B, int shift) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / B;
-    const int p = (int)(i - r * B);
-    const uint8_t* row = data + r * B;
-    uint32_t w = row[p];
-    if (p + 1 < B) w |= (uint32_t)row[p + 1] << 8;
-    if (p + 2 < B) w |= (uint32_t)row[p + 2] << 16;
-    if (p + 3 < B) w |= (uint32_t)row[p + 3] << 24;
-    const uint32_t h = (w * kHashMul) >> shift;
-    key[i] = (int32_t)((h << 16) | (uint32_t)p);
+// The lanes of a warp whose 8-bit digit d equals this lane's (lanes with
+// valid false match only each other): nine ballots, which beat one
+// __match_any_sync a tile on the main shape on an H100 (PERF.md §6).
+__device__ __forceinline__ unsigned same_digit(uint32_t d, bool valid) {
+  unsigned m = __ballot_sync(~0u, valid);
+  m = valid ? m : ~m;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const unsigned x = __ballot_sync(~0u, (d >> b) & 1);
+    m &= (d >> b) & 1 ? x : ~x;
   }
+  return m;
 }
 
+// Inclusive prefix sum over a warp.
+__device__ __forceinline__ uint32_t warp_scan(uint32_t x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(~0u, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// One stable counting pass by an 8-bit digit over this CTA's elements
+// [e0, e1) of a row whose elements the cluster's CTAs share in order. Each
+// warp takes a run of consecutive 32-element tiles and counts its digits:
+// the lanes of a tile with one digit form a group, whose lowest lane adds
+// the group's size to the warp's count. Each digit's first slot in this CTA
+// is the count of smaller digits in the whole cluster plus the count of the
+// digit in the CTAs before this one (read from their shared memory), and
+// each warp's is that plus the warps' before it; the warp then places its
+// tiles in order, a lane at its digit's next slot plus its rank in its
+// group: equal digits keep their order. elem(e, d, v) gives element e's
+// digit d and value v; put(slot, v).
+template <typename Elem, typename Put>
+__device__ void counting_pass(cg::cluster_group& cluster, int e0,
+                              int e1, uint32_t* hist, uint32_t* sums,
+                              Elem elem, Put put) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ntiles = (e1 - e0 + 31) >> 5;
+  const int per = (ntiles + kKeyWarps - 1) / kKeyWarps;
+  const int t0 = min(ntiles, warp * per), t1 = min(ntiles, t0 + per);
+  uint32_t* col = hist + warp;
+  for (int i = threadIdx.x; i < kHistWords; i += blockDim.x) hist[i] = 0;
+  __syncthreads();
+  for (int t = t0; t < t1; ++t) {
+    const int e = e0 + t * 32 + lane;
+    uint32_t d = 0, v = 0;
+    if (e < e1) elem(e, d, v);
+    const unsigned peers = same_digit(d, e < e1);
+    if (e < e1 && lane == __ffs(peers) - 1)
+      col[d * kHistStride] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  uint32_t* total = hist + kKeyWarps;    // column kKeyWarps: the CTA's count
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) {
+    uint32_t c = 0;
+    for (int w = 0; w < kKeyWarps; ++w) c += hist[d * kHistStride + w];
+    total[d * kHistStride] = c;
+  }
+  cluster.sync();
+  // thread d: the digit's count in the cluster and in the CTAs before this
+  const int K = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int d = threadIdx.x;
+  uint32_t all = 0, before = 0;
+  if (d < kDigits) {
+    for (int q = 0; q < K; ++q) {
+      const uint32_t c = *cluster.map_shared_rank(total + d * kHistStride, q);
+      all += c;
+      before += q < rank ? c : 0;
+    }
+  }
+  const uint32_t incl = warp_scan(all);   // over the digits (warps 0-7)
+  if (lane == 31) sums[warp] = incl;
+  cluster.sync();    // every CTA has read the totals before they change
+  if (d < kDigits) {
+    uint32_t below = incl - all;
+    for (int w = 0; w < warp; ++w) below += sums[w];
+    total[d * kHistStride] = below + before;
+  }
+  __syncthreads();
+  for (int dd = warp; dd < kDigits; dd += kKeyWarps) {
+    const uint32_t c = hist[dd * kHistStride + lane];
+    const uint32_t x = warp_scan(c);
+    hist[dd * kHistStride + lane] = total[dd * kHistStride] + x - c;
+  }
+  __syncthreads();
+  for (int t = t0; t < t1; ++t) {
+    const int e = e0 + t * 32 + lane;
+    uint32_t d = 0, v = 0;
+    if (e < e1) elem(e, d, v);
+    const unsigned peers = same_digit(d, e < e1);
+    const uint32_t slot = e < e1 ? col[d * kHistStride] : 0;
+    __syncwarp();
+    if (e < e1) {
+      put(slot + __popc(peers & ((1u << lane) - 1)), v);
+      if (lane == __ffs(peers) - 1) col[d * kHistStride] = slot + __popc(peers);
+    }
+    __syncwarp();
+  }
+  cluster.sync();    // the slots written, in this CTA and in the others
+}
+
+// A cluster of K CTAs a row; CTA c takes the row's elements [c*E, (c+1)*E)
+// in each pass, E a whole number of tiles.
+__global__ void __launch_bounds__(kKeyThreads)
+match_keys_kernel(const uint8_t* __restrict__ data, int32_t* __restrict__ key,
+                  int B, int hash_bits, int E) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int stage = round16(B + 8);
+  const bool two = hash_bits > 8;
+  uint16_t* pos = reinterpret_cast<uint16_t*>(smem + stage);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(
+      smem + stage + (two ? round16(2 * E) : 0));
+  uint32_t* sums = hist + kHistWords;
+  const long long r = blockIdx.x / K;
+  const int e0 = min(B, rank * E), e1 = min(B, e0 + E);
+  stage_row(smem, data + r * B, B, stage);
+  __syncthreads();
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(smem);
+  const int shift = 32 - hash_bits;
+  // the keys' order as int32: at 16 bits the wrap puts h >= 32,768 first
+  const uint32_t flip = hash_bits == 16 ? 0x8000u : 0u;
+  int32_t* out = key + r * B;
+  const auto bucket = [&](int p) {
+    return ((word_at(w, p) * kHashMul) >> shift) ^ flip;
+  };
+  const auto key_of = [&](int p, uint32_t b) {
+    return ((b ^ flip) << 16) | (uint32_t)p;
+  };
+  const auto store = [&](uint32_t slot, uint32_t v) {
+    out[slot] = (int32_t)v;
+  };
+  if (!two) {
+    counting_pass(cluster, e0, e1, hist, sums,
+                  [&](int e, uint32_t& d, uint32_t& v) {
+                    d = bucket(e);
+                    v = key_of(e, d);
+                  }, store);
+    return;
+  }
+  // the low digit into the positions in shared memory (slot s in CTA s / E),
+  // then the high one
+  counting_pass(cluster, e0, e1, hist, sums,
+                [&](int e, uint32_t& d, uint32_t& v) {
+                  d = bucket(e) & 255;
+                  v = e;
+                }, [&](uint32_t slot, uint32_t v) {
+                  if (K == 1) {
+                    pos[slot] = (uint16_t)v;
+                  } else {
+                    const int q = (int)slot / E;
+                    cluster.map_shared_rank(pos, q)[slot - q * E] =
+                        (uint16_t)v;
+                  }
+                });
+  counting_pass(cluster, e0, e1, hist, sums,
+                [&](int e, uint32_t& d, uint32_t& v) {
+                  const int p = pos[e - e0];
+                  const uint32_t b = bucket(p);
+                  d = b >> 8;
+                  v = key_of(p, b);
+                }, store);
+}
+
+// A warp takes the sorted entries [t0, t0 + 32 - halo) of its row, one a
+// lane from lane `halo` on; lanes 0..halo-1 hold the halo entries before
+// them, so candidate s <= halo of the entry in lane l sits in lane l - s.
+// Each lane's window win[i] = the word at p + 4i is loaded from the staged
+// row when the warp's compares first reach word i, and candidate s's words
+// come by __shfl_up_sync(..., s); a warp vote stops the candidates once no
+// lane's entries still share its hash, and a candidate's words once no lane
+// is still equal. Words past kNw (nw > 32) and candidates past the halo
+// (depth > 16) are compared in shared memory by the lane alone.
+template <int kNw>
 __global__ void __launch_bounds__(kCandThreads)
 match_candidates_kernel(const uint8_t* __restrict__ data,
                         const int32_t* __restrict__ skey,
@@ -138,27 +329,84 @@ match_candidates_kernel(const uint8_t* __restrict__ data,
   const int32_t* sk = skey + r * B;
   int32_t* out = best + r * B;
   const int nw_far = nw_deep ? min(nw, nw_deep) : nw;
-  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
-    const uint32_t key = (uint32_t)sk[j];
-    const int p = key & 0xFFFF;
-    const uint32_t h = key >> 16;
-    const uint32_t w0 = word_at(w, p);
+  const int lane = threadIdx.x & 31;
+  const int halo = min(depth, kMaxHalo);
+  const int fresh = 32 - halo;    // new entries a tile
+  const int stride = (blockDim.x >> 5) * fresh;
+  for (int t0 = j0 + (threadIdx.x >> 5) * fresh; t0 < j1; t0 += stride) {
+    const int j = t0 - halo + lane;
+    const bool mine = lane >= halo && j < j1;
+    const uint32_t k = j >= 0 && j < B ? (uint32_t)sk[j] : 0u;
+    const uint32_t h = j >= 0 && j < B ? k >> 16 : ~0u;   // ~0u: no entry
+    const int p = k & 0xFFFF;
+    const int sh = (p & 3) * 8;
+    const uint32_t* pw = w + (p >> 2);
+    uint32_t win[kNw + 1];
+    uint32_t lo = pw[1];
+    win[0] = __funnelshift_r(pw[0], lo, sh);
+    int loaded = 1;
     int blen = 0, boff = 1;
-    for (int s = 1; s <= depth && j - s >= 0; ++s) {
+    bool alive = mine;    // the entries between this one and s share its hash
+    for (int s = 1; s <= halo; ++s) {
+      const uint32_t ch = __shfl_up_sync(~0u, h, s);
+      const int q = __shfl_up_sync(~0u, p, s);
+      const uint32_t c0 = __shfl_up_sync(~0u, win[0], s);
+      alive = alive && ch == h;
+      if (!__any_sync(~0u, alive)) break;
+      const int off = p - q;
+      const bool ok = alive && !(max_off && off > max_off) && c0 == win[0];
+      const int nws = s == 1 ? nw : nw_far;
+      // word `at` (0: none) is the first that differs, by x; the warp
+      // votes every 4 words, where it also loads the next 4 of its window
+      bool live = ok;
+      int at = 0;
+      uint32_t xm = 0;
+#pragma unroll
+      for (int i = 1; i <= kNw; ++i) {
+        if (i > nws) break;
+        if ((i & 3) == 1) {
+          if (!__any_sync(~0u, live)) break;
+          if (i >= loaded) {    // the warp's first compare of words i..i+3
+#pragma unroll
+            for (int u = i; u < i + 4 && u <= kNw; ++u) {
+              if (u > nw) break;    // the row is staged to 4*nw+8 past B
+              const uint32_t hi = pw[u + 1];
+              win[u] = __funnelshift_r(lo, hi, sh);
+              lo = hi;
+            }
+            loaded = i + 4;
+          }
+        }
+        const uint32_t x = win[i] ^ __shfl_up_sync(~0u, win[i], s);
+        const bool miss = live && x;
+        at = miss ? i : at;
+        xm = miss ? x : xm;
+        live = live && !x;
+      }
+      int len = at ? 4 * at + ((__ffs(xm) - 1) >> 3)
+                   : kMinMatch + 4 * min(nws, kNw);
+      if (live && nws > kNw)
+        len += common_bytes(w, p + 4 * (kNw + 1), q + 4 * (kNw + 1),
+                            nws - kNw);
+      if (ok && len > blen) {
+        blen = len;
+        boff = off;
+      }
+    }
+    for (int s = halo + 1; s <= depth && alive && j - s >= 0; ++s) {
       const uint32_t k2 = (uint32_t)sk[j - s];
-      if ((k2 >> 16) != h) break;    // sorting groups a hash's entries
+      if ((k2 >> 16) != h) break;
       const int q = k2 & 0xFFFF;
       const int off = p - q;
       if (max_off && off > max_off) continue;
-      if (word_at(w, q) != w0) continue;
-      const int len = kMinMatch + common_bytes(w, p + 4, q + 4,
-                                               s == 1 ? nw : nw_far);
+      if (word_at(w, q) != win[0]) continue;
+      const int len = kMinMatch + common_bytes(w, p + 4, q + 4, nw_far);
       if (len > blen) {
         blen = len;
         boff = off;
       }
     }
-    out[p] = (int32_t)(((uint32_t)boff << 16) | (uint32_t)blen);
+    if (mine) out[p] = (int32_t)(((uint32_t)boff << 16) | (uint32_t)blen);
   }
 }
 
@@ -319,11 +567,43 @@ extern "C" int atpu_match_keys(const void* data, void* key, int n, int b,
   if (n <= 0 || b <= 0) return 0;
   if (b > 65536 || hash_bits < 1 || hash_bits > 16)
     return (int)cudaErrorInvalidValue;
-  const long long total = (long long)n * b;
-  const long long blocks = (total + kKeyThreads - 1) / kKeyThreads;
-  const unsigned grid = (unsigned)(blocks < 65536 ? blocks : 65536);
-  match_keys_kernel<<<grid, kKeyThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)data, (int32_t*)key, total, b, 32 - hash_bits);
+  static bool opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(match_keys_kernel, opted);
+  if (err != cudaSuccess) return (int)err;
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && !sms[dev])
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err != cudaSuccess) return (int)err;
+  // CTAs a row: the largest power of two up to kMaxCluster with n * K CTAs
+  // on at most one per SM and a tile a warp
+  const int ntiles = (b + 31) / 32;
+  int k = 1;
+  while (2 * k <= kMaxCluster && (long long)n * 2 * k <= sms[dev] &&
+         2 * k * kKeyWarps <= ntiles)
+    k *= 2;
+  const int e = (ntiles + k - 1) / k * 32;
+  // the row, this CTA's positions between two passes, the counts, sums
+  const int smem = round16(b + 8) + (hash_bits > 8 ? round16(2 * e) : 0) +
+                   4 * (kHistWords + 32);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n * (unsigned)k);
+  cfg.blockDim = dim3(kKeyThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((long long)n * k > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, match_keys_kernel, (const uint8_t*)data,
+                           (int32_t*)key, b, hash_bits, e);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -336,8 +616,13 @@ extern "C" int atpu_match_candidates(const void* data, const void* skey,
     return (int)cudaErrorInvalidValue;
   if (b + 4LL * nw + 8 > kMaxSmem) return (int)cudaErrorInvalidValue;
   const int stage = round16(b + 4 * nw + 8);
-  static bool opted[kMaxDevices] = {};
-  cudaError_t err = opt_in(match_candidates_kernel, opted);
+  // the window words a lane holds in registers
+  const int which = nw <= 8 ? 0 : nw <= 16 ? 1 : 2;
+  const auto kernel = which == 0   ? match_candidates_kernel<8>
+                      : which == 1 ? match_candidates_kernel<16>
+                                   : match_candidates_kernel<32>;
+  static bool opted[3][kMaxDevices] = {};
+  cudaError_t err = opt_in(kernel, opted[which]);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -351,8 +636,7 @@ extern "C" int atpu_match_candidates(const void* data, const void* skey,
   const int slice = (b + slices - 1) / slices;
   const long long grid = (long long)n * slices;
   if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  match_candidates_kernel<<<(unsigned)grid, kCandThreads, stage,
-                            (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)grid, kCandThreads, stage, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)skey, (int32_t*)best, b, slices,
       slice, stage, depth, nw, nw_deep, max_off);
   return (int)cudaGetLastError();

@@ -17,9 +17,9 @@ Encode (per block, batched):
                       comes from comparing the word chains. Offsets 1, 2 and
                       4 get exact run lengths by a reverse cummin, and the
                       saturated-match ladder extends matches past the cap
-                      (on the card: the kernels match_keys,
-                      match_candidates and match_runs around the sort,
-                      comparing bytes in place with no word chains).
+                      (on the card: the kernels match_keys, which gives
+                      the sorted keys with no sort, match_candidates and
+                      match_runs, comparing bytes with no word chains).
   3. parse          — one candidate per G-byte tile; the greedy tile chain is
                       marked by reachability inside sub-chains of SUBM
                       tiles (_reach_from_start: the kernel subchain_reach
@@ -162,9 +162,9 @@ def _find_matches(data_u8: torch.Tensor, n: torch.Tensor, B: int,
     to nw_deep words; ext_passes > 0 runs the saturated-match extension
     ladder. Same contract as the JAX package's _find_matches.
 
-    A CUDA tensor runs the kernels match_keys, match_candidates and
-    match_runs (csrc/match_find.cu) around one torch.sort, a CPU tensor
-    their plain versions (_find_matches_plain).
+    A CUDA tensor runs the kernels match_keys (the sorted keys),
+    match_candidates and match_runs (csrc/match_find.cu) and nothing else,
+    a CPU tensor their plain versions (_find_matches_plain).
     """
     if data_u8.is_cuda:
         from . import match_find as mf
@@ -185,17 +185,17 @@ def _find_matches_plain(data_u8: torch.Tensor, n: torch.Tensor, B: int,
                         hash_bits: int = HASH_BITS, nw_deep: int = 0,
                         ext_passes: int = 0):
     """PyTorch version of _find_matches on any device: the three stages'
-    plain versions around the same sort."""
+    plain versions."""
     return _match_stages(_MATCH_PLAIN, data_u8, n, B, max_off, depth, nw,
                          small_offsets, hash_bits, nw_deep, ext_passes)
 
 
 def _match_stages(stages, data_u8, n, B, max_off, depth, nw, small_offsets,
                   hash_bits, nw_deep, ext_passes):
-    """keys -> sort -> candidates -> runs, with the (keys, candidates,
-    runs) functions given."""
-    keys, candidates, runs = stages
-    skey = torch.sort(keys(data_u8, B, hash_bits), dim=-1).values
+    """sorted keys -> candidates -> runs, with the (sorted keys,
+    candidates, runs) functions given."""
+    sorted_keys, candidates, runs = stages
+    skey = sorted_keys(data_u8, B, hash_bits)
     best = candidates(data_u8, skey, B, max_off, depth, nw, nw_deep)
     return runs(data_u8, best, n, B, small_offsets, nw, ext_passes)
 
@@ -203,12 +203,21 @@ def _match_stages(stages, data_u8, n, B, max_off, depth, nw, small_offsets,
 def _match_keys_plain(data_u8: torch.Tensor, B: int,
                       hash_bits: int) -> torch.Tensor:
     """The sort key of every position, (hash << 16 | pos) as the JAX
-    package's int32 (the uint32 value wrapped): (N, B) int32. Plain
-    version of the kernel match_keys."""
+    package's int32 (the uint32 value wrapped): (N, B) int32."""
     idx = _arange(B, data_u8.device).expand(data_u8.shape[0], B)
     h = _hash(_window_words(data_u8, B, 0)[0], hash_bits)
     key = (h << 16) | idx.to(torch.int64)
     return torch.where(key >= (1 << 31), key - (1 << 32), key).to(_I32)
+
+
+def _match_sorted_keys_plain(data_u8: torch.Tensor, B: int,
+                             hash_bits: int) -> torch.Tensor:
+    """Each row's sort keys in ascending order, (N, B) int32: the JAX
+    package's sort of them, which groups a hash's positions in increasing
+    order (the int32 wrap puts hashes >= 32,768 first at hash_bits 16).
+    Plain version of the kernel match_keys."""
+    return torch.sort(_match_keys_plain(data_u8, B, hash_bits),
+                      dim=-1).values
 
 
 def _match_candidates_plain(data_u8: torch.Tensor, skey: torch.Tensor,
@@ -304,7 +313,8 @@ def _match_runs_plain(data_u8: torch.Tensor, best: torch.Tensor,
             valid)
 
 
-_MATCH_PLAIN = (_match_keys_plain, _match_candidates_plain, _match_runs_plain)
+_MATCH_PLAIN = (_match_sorted_keys_plain, _match_candidates_plain,
+                _match_runs_plain)
 
 
 def _floor_chain_nxt(cpos, cml, cvalid, aidx, shift, M, G, match_cap=0):

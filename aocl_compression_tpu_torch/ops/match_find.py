@@ -1,24 +1,26 @@
 """Wrappers of the match-finder kernels (csrc/match_find.cu).
 
 Three hand kernels for sm_90a, built with nvcc into _build/ at first use
-and bound with ctypes, as ops/chain_scan.py builds chain_scan.cu. With one
-torch.sort between the first two they compute ops/lz4_device._find_matches,
-the first stage of every device encoder:
+and bound with ctypes, as ops/chain_scan.py builds chain_scan.cu. In turn
+they compute ops/lz4_device._find_matches, the first stage of every device
+encoder:
 
-  match_keys        the sort key (hash << 16 | position) of each position;
+  match_keys        each row's sort keys (hash << 16 | position) in
+                    ascending order, as torch.sort of them gives: a stable
+                    counting sort by the hash's digits in shared memory;
   match_candidates  the best of the `depth` previous same-hash positions of
-                    each sorted entry, compared in place on the row staged
-                    in shared memory, as (offset << 16 | length) at each
-                    position;
+                    each sorted entry, the windows held in registers and
+                    handed between a warp's lanes, as (offset << 16 |
+                    length) at each position;
   match_runs        the exact runs at the small offsets, the saturated-match
                     ladder and the end-of-block rules: (mlen, moff, valid).
 
 Each wrapper takes CUDA tensors only, allocates its outputs with
 torch.empty, launches on the current stream and raises when the launch
 fails (there is no fallback). Their plain PyTorch versions
-(_match_keys_plain, _match_candidates_plain, _match_runs_plain) live beside
-their caller in ops/lz4_device.py, which picks the kernels for a CUDA
-tensor and the plain versions for a CPU tensor.
+(_match_sorted_keys_plain, _match_candidates_plain, _match_runs_plain) live
+beside their caller in ops/lz4_device.py, which picks the kernels for a
+CUDA tensor and the plain versions for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -104,8 +106,11 @@ def _launch(kernel: str, fn, dev, *args) -> None:
 
 
 def match_keys(data_u8: torch.Tensor, B: int, hash_bits: int) -> torch.Tensor:
-    """data_u8 (N, B) uint8 -> key (N, B) int32: (h << 16 | p) with the
-    uint32 -> int32 wrap, h the hash of the 4 bytes at p (zeros past B)."""
+    """data_u8 (N, B) uint8 -> each row's keys (N, B) int32 in ascending
+    order: the keys (h << 16 | p) with the uint32 -> int32 wrap, h the hash
+    of the 4 bytes at p (zeros past B), bit for bit torch.sort(keys,
+    dim=-1).values (so at hash_bits 16 the hashes >= 32,768 come first, and
+    a hash's positions ascend)."""
     N, dev = _data(data_u8, B)
     if not 1 <= hash_bits <= 16:
         raise ValueError(f"match_keys takes 1 <= hash_bits <= 16, got "

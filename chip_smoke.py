@@ -38,11 +38,12 @@ non-zero before the last line:
      match_runs), launched once a compress call each, against the plain
      _find_matches on the path's real call (check_matches: the whole
      function output for output, each kernel on the kernel path's own
-     inputs; graph-replay times of each kernel, of torch.sort and of the
-     whole kernel path beside the plain versions' times and the HBM
-     bounds; the peak memory of one call of each path) and on seeded
-     adversarial rows at every encoder's setting and four more
-     (match_adversarial, B = 256 and 4,096);
+     inputs, match_keys' sorted keys exactly; graph-replay times of each
+     kernel, of torch.sort of the unsorted keys (match_keys' library
+     yardstick) and of the whole kernel path beside the plain versions'
+     times and the HBM bounds; the peak memory of one call of each path)
+     and on seeded adversarial rows at every encoder's setting and four
+     more (match_adversarial, B = 256 and 4,096);
   5. the bench encoder config (G=8, depth 5, nw 5, subm 64, lazy 1,
      ext_passes 5) on the same corpus, and subchain_reach against its
      plain version on its real input (SUBM 64); the match kernels on its
@@ -864,11 +865,13 @@ def match_bytes(N, Bk):
 def check_matches(label, run, main=False):
     """The match kernels against their plain versions on a path's real
     _find_matches call (captured while run() runs): the whole function
-    output for output, and each kernel on the kernel path's own inputs;
-    graph-replay times of each kernel, the sort and the whole kernel path,
-    the plain versions' (device events, one call), the HBM bounds and the
-    peak memory of one call of each path. main: the kernels line's
-    times."""
+    output for output, and each kernel on the kernel path's own inputs
+    (match_keys' sorted keys against the plain keys' torch.sort, exactly);
+    graph-replay times of each kernel, of torch.sort of the unsorted keys
+    (the library call that computes match_keys' function: its library_ms)
+    and of the whole kernel path, the plain versions' (device events, one
+    call), the HBM bounds and the peak memory of one call of each path.
+    main: the kernels line's times."""
     from aocl_compression_tpu_torch.ops import lz4_device as ld
     from aocl_compression_tpu_torch.ops import match_find as mf
     (data, n, Bk), kw = find_matches_call(run)
@@ -882,12 +885,11 @@ def check_matches(label, run, main=False):
     hb = kw["hash_bits"]
     cand = (Bk, kw["max_off"], kw["depth"], kw["nw"], kw["nw_deep"])
     runs = (Bk, kw["small_offsets"], kw["nw"], kw["ext_passes"])
-    key = mf.match_keys(data, Bk, hb)
-    skey = torch.sort(key, dim=-1).values
+    skey = mf.match_keys(data, Bk, hb)
     best = mf.match_candidates(data, skey, *cand)
     stages = {
         "match_keys": (lambda: mf.match_keys(data, Bk, hb),
-                       lambda: ld._match_keys_plain(data, Bk, hb)),
+                       lambda: ld._match_sorted_keys_plain(data, Bk, hb)),
         "match_candidates": (
             lambda: mf.match_candidates(data, skey, *cand),
             lambda: ld._match_candidates_plain(data, skey, *cand)),
@@ -904,7 +906,10 @@ def check_matches(label, run, main=False):
         del want, got
         res[name] = dict(max_abs_err=e, ms=graph_ms(kernel), plain_ms=p_ms,
                          bound_ms=nbytes[name] / HBM_BYTES_PER_S * 1e3)
+    key = ld._match_keys_plain(data, Bk, hb)
     sort_ms = graph_ms(lambda: torch.sort(key, dim=-1))
+    res["match_keys"]["library_ms"] = sort_ms
+    del key
     whole_ms = graph_ms(lambda: ld._find_matches(data, n, Bk, **kw))
     mem = peak_above(lambda: ld._find_matches(data, n, Bk, **kw))
     mem_plain = peak_above(lambda: ld._find_matches_plain(data, n, Bk, **kw))
@@ -913,7 +918,7 @@ def check_matches(label, run, main=False):
     print(f"[match kernel] _find_matches ({label}: N={N}, B={Bk}, {setting}) "
           f"vs plain on the path's real call: equal on mlen, moff, valid; "
           f"kernel path {whole_ms:.4f} ms (CUDA-graph replay: the three "
-          f"kernels and torch.sort), plain {plain_ms:.2f} ms (one call, "
+          f"kernels), plain {plain_ms:.2f} ms (one call, "
           f"device events), bound {bound:.4f} ms "
           f"(data and n read, mlen, moff, valid written once at 3.35 "
           f"TB/s); peak memory of one call above the memory in use before "
@@ -924,9 +929,11 @@ def check_matches(label, run, main=False):
               f"kernel path's inputs: equal; kernel {r['ms']:.4f} ms (CUDA-"
               f"graph replay), plain {r['plain_ms']:.2f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({nbytes[name]} B at 3.35 TB/s)")
-    print(f"[match kernel] torch.sort of the keys ({label}): {sort_ms:.4f} "
-          f"ms (CUDA-graph replay; library, values and int64 indices), "
-          f"bound {nbytes['sort'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    print(f"[match kernel] torch.sort of the unsorted keys ({label}; the "
+          f"library call computing match_keys' function from the keys): "
+          f"{sort_ms:.4f} ms (CUDA-graph replay; values and int64 "
+          f"indices), bound {nbytes['sort'] / HBM_BYTES_PER_S * 1e3:.4f} "
+          f"ms")
     for name, r in res.items():
         prev = MATCH.get(name)
         e = max(r["max_abs_err"], err, prev["max_abs_err"] if prev else 0)
@@ -3087,7 +3094,7 @@ def main():
             replaces="aocl_compression_tpu/ops/lz4_device.py:138-243",
             launches=PATH_LAUNCHES[name], max_abs_err=st["max_abs_err"],
             ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
-            bound_by="bytes", library_ms=None))
+            bound_by="bytes", library_ms=st.get("library_ms")))
     print("[paths] chain and match kernels' launches: "
           + json.dumps(PATH_LAUNCHES))
     print(json.dumps({"kernels": kernels}))
