@@ -45,17 +45,23 @@
 //                     halo are compared in shared memory); it writes
 //                     (offset << 16 | length) at position p, one word a
 //                     position (the sorted positions are a permutation);
-//   match_runs        a CTA a row: the row in shared memory, each warp a
-//                     run of 32-position tiles; a disagreement mask per tile
-//                     and offset from one ballot, the first disagreement of
-//                     each warp's run, a suffix minimum over the warps, then
-//                     each warp walks its tiles backwards carrying the next
+//   match_runs        a thread-block cluster a row (16 CTAs up to 8 rows,
+//                     one from 67 rows on; with the ladder at least 2 at
+//                     B = 65,536), each CTA a slice of the positions with its
+//                     bytes in shared memory and each warp a run of
+//                     32-position tiles: a disagreement mask per tile and
+//                     offset from one ballot, the first disagreement of each
+//                     warp and CTA, a suffix minimum over the CTAs
+//                     (distributed shared memory) and the warps, then each
+//                     warp walks its tiles backwards carrying the next
 //                     disagreement, so every lane gets its run length from
 //                     its tile's mask; the best candidate is replaced by a
-//                     longer run, then (ext_passes > 0) the ladder walks
-//                     forward at stride CAPV = 4 + 4*nw over a bitmap of
-//                     the row's links in shared memory, and the
-//                     end-of-block rules write the outputs.
+//                     longer run; then (ext_passes > 0) the ladder on chip:
+//                     the combined results as one 32-bit word a position in
+//                     shared memory, the link bitmap and its doublings at
+//                     strides CAPV * 2^p (CAPV = 4 + 4*nw), each position's
+//                     descent over them; the end-of-block rules write the
+//                     outputs.
 // What bounds them: bytes (each reads the input once and writes its outputs
 // once). match_keys' passes are warp instructions on shared memory;
 // match_candidates' compares are shuffles between registers, its result
@@ -65,6 +71,13 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Phase marks of match_runs for scripts/match_runs_phases.py, which
+// defines them in an instrumented copy; nothing here.
+#ifndef ATPU_PHASES
+#define ATPU_PHASE_BEGIN()
+#define ATPU_PHASE(I, NAME)
+#endif
 
 namespace {
 
@@ -86,6 +99,11 @@ constexpr int kCandThreads = 512;
 constexpr int kMaxHalo = 16;         // candidates a lane takes by shuffles
 constexpr int kMinSlice = 256;       // sorted entries a CTA at the least
 constexpr int kMaxRunThreads = 1024;
+constexpr int kMaxRunCluster = 16;   // match_runs' CTAs a row by the SMs
+constexpr int kMaxClusterHw = 16;    // a cluster's most CTAs (non-portable)
+// tiles of best candidates in flight a warp (twice as many in the ladder's
+// instantiation, which has registers to spare at one CTA an SM)
+constexpr int kRunAhead = 4;
 constexpr int kMaxSmem = 232448;     // a block's most dynamic shared memory
 constexpr int kMaxDevices = 64;
 
@@ -410,11 +428,6 @@ match_candidates_kernel(const uint8_t* __restrict__ data,
   }
 }
 
-__device__ __forceinline__ bool disagrees(const uint8_t* row, int i, int o,
-                                          int B) {
-  return i < B && (i < o || row[i] != row[i - o]);
-}
-
 __device__ __forceinline__ void finish(int i, int blen, int boff, int n,
                                        int32_t* mlen, int32_t* moff,
                                        bool* valid) {
@@ -425,20 +438,67 @@ __device__ __forceinline__ void finish(int i, int blen, int boff, int n,
   valid[i] = v;
 }
 
+// The split halves of cluster.sync(): this CTA's threads are done reading
+// the other CTAs' shared memory; the wait before exit keeps this CTA's own
+// shared memory alive until the others are done with it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// A cluster of K CTAs a row; CTA c takes the positions [c*E, (c+1)*E), E a
+// whole number of 32-position tiles, with its bytes and the `halo` bytes
+// before them (the largest small offset) staged in shared memory. Each
+// warp takes a run of consecutive tiles.
+//
+// Runs: per small offset, one ballot a tile gives the tile's disagreement
+// mask; each warp finds its first disagreement, the CTA's first goes to
+// shared memory, and after a cluster barrier each CTA takes the minimum of
+// the CTAs after it (distributed shared memory) and of the warps after it:
+// the next disagreement past the warp's tiles. Each warp then walks its
+// tiles backwards carrying it, so every lane has its run length from its
+// tile's mask; the best candidate (read a few tiles ahead, the first
+// group before the staging barrier) is replaced by a longer run. Without
+// the ladder two CTAs of 1,024 threads share an SM (32 registers), as a
+// CTA a row of 65,536 needs at 256 rows to take one wave.
+//
+// The ladder (kLadder, `levels` = P > 0) keeps everything on chip: the
+// combined (off << 16 | len) of each position in shared memory (off <
+// 65,536; a run at i >= 1 is at most 65,535, at i = 0 it is 0), then the
+// link bitmap link_0[i] = i + CAPV < B, len[i] >= CAPV, off[i + CAPV] ==
+// off[i] (one ballot a tile; i + CAPV may lie in a later CTA), the doubled
+// bitmaps link_{p+1}[i] = link_p[i] & link_p[i + CAPV * 2^p] built word by
+// word with funnel shifts (a cluster barrier a level), and each position's
+// descent from p = P - 1 to 0, jumping CAPV * 2^p wherever link_p holds at
+// the current j: min(links, 2^P - 1) links in P shared loads, the JAX
+// package's pointer doubling (aocl_compression_tpu/ops/lz4_device.py:
+// 229-237) unrolled. The landing j may lie in any CTA of the cluster.
 template <bool kLadder>
-__global__ void __launch_bounds__(kMaxRunThreads)
+__global__ void
+__launch_bounds__(kMaxRunThreads, kLadder ? 1 : 2)
 match_runs_kernel(const uint8_t* __restrict__ data,
                   const int32_t* __restrict__ best,
-                  const int32_t* __restrict__ nlen, int32_t* mlen,
-                  int32_t* moff, bool* valid, int B, SmallOffsets offs,
-                  int noffs, int ladder_steps, int capv) {
-  extern __shared__ __align__(16) uint8_t row[];
-  __shared__ int first[kMaxOffsets][32];
-  const long long r = blockIdx.x;
-  stage_row(row, data + r * B, B, round16(B));
+                  const int32_t* __restrict__ nlen, int32_t* __restrict__ mlen,
+                  int32_t* __restrict__ moff, bool* __restrict__ valid, int B,
+                  SmallOffsets offs, int noffs, int halo, int E, int stage,
+                  int levels, int capv) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int first[kMaxOffsets][32];   // each warp's first disagreement
+  __shared__ int cta_first[kMaxOffsets];   // this CTA's, for the CTAs before
+  __shared__ int after[kMaxOffsets];       // the CTAs' after this one
+  ATPU_PHASE_BEGIN();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const long long r = blockIdx.x / K;
+  const int base = rank * E;
+  const int e1 = min(B, base + E), e0 = min(base, e1);
+  const int lo = max(0, e0 - halo);
+  const uint8_t* src = data + r * B;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int ntiles = (B + 31) >> 5;
+  const int ntiles = (e1 - e0 + 31) >> 5;
   const int per = (ntiles + nwarps - 1) / nwarps;
   const int t0 = min(ntiles, warp * per), t1 = min(ntiles, t0 + per);
   const int n = nlen[r];
@@ -446,96 +506,173 @@ match_runs_kernel(const uint8_t* __restrict__ data,
   mlen += r * B;
   moff += r * B;
   valid += r * B;
-  __syncthreads();
 
-  // first disagreement of each warp's tiles, per offset (B if none)
+  // bytes [lo, e1) of the row into row[0, e1 - lo)
+  uint8_t* row = smem;
+  {
+    const uint8_t* s = src + lo;
+    const int len = e1 - lo;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      for (int i = threadIdx.x; i < len / 16; i += blockDim.x)
+        reinterpret_cast<uint4*>(row)[i] =
+            __ldg(reinterpret_cast<const uint4*>(s) + i);
+      done = len & ~15;
+    }
+    for (int i = done + threadIdx.x; i < len; i += blockDim.x)
+      row[i] = __ldg(s + i);
+  }
+  // the best candidates of the warp's last `kAhead` tiles, in flight
+  // through the staging and the first-disagreement pass
+  constexpr int kAhead = kLadder ? 2 * kRunAhead : kRunAhead;
+  uint32_t ahead[kAhead];
+  const auto fetch = [&](int top) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int t = top - 1 - u;
+      const int i = e0 + t * 32 + lane;
+      ahead[u] = t >= t0 && i < B ? (uint32_t)__ldg(best + i) : 1u << 16;
+    }
+  };
+  fetch(t1);
+  const auto disagrees = [&](int i, int o) {
+    return i < B && (i < o || row[i - lo] != row[i - o - lo]);
+  };
+  __syncthreads();
+  ATPU_PHASE(1, "staging");
+
+  // the first disagreement of each warp's tiles, per offset (B if none)
 #pragma unroll
   for (int k = 0; k < kMaxOffsets; ++k) {
     if (k >= noffs) break;
     int f = B;
     for (int t = t0; t < t1; ++t) {
-      const unsigned m = __ballot_sync(~0u, disagrees(row, t * 32 + lane,
-                                                      offs.o[k], B));
+      const unsigned m =
+          __ballot_sync(~0u, disagrees(e0 + t * 32 + lane, offs.o[k]));
       if (m) {
-        f = t * 32 + __ffs(m) - 1;
+        f = e0 + t * 32 + __ffs(m) - 1;
         break;
       }
     }
     if (lane == 0) first[k][warp] = f;
   }
   __syncthreads();
-
-  // the next disagreement after this warp's tiles: the warps' suffix min
+  if (warp == 0) {
+    for (int k = 0; k < noffs; ++k) {
+      const int m = __reduce_min_sync(~0u, lane < nwarps ? first[k][lane] : B);
+      if (lane == 0) cta_first[k] = m;
+    }
+  }
+  ATPU_PHASE(2, "first disagreement");
+  cluster.sync();
+  if ((int)threadIdx.x < noffs) {
+    int m = B;
+    for (int q = rank + 1; q < K; ++q)
+      m = min(m, *cluster.map_shared_rank(&cta_first[threadIdx.x], q));
+    after[threadIdx.x] = m;
+  }
+  if (!kLadder) cluster_arrive();    // the last read of another CTA
+  __syncthreads();
+  // the next disagreement after this warp's tiles
   int carry[kMaxOffsets];
 #pragma unroll
   for (int k = 0; k < kMaxOffsets; ++k) {
     if (k >= noffs) break;
     const int f = (lane > warp && lane < nwarps) ? first[k][lane] : B;
-    carry[k] = __reduce_min_sync(~0u, f);
+    carry[k] = min(after[k], __reduce_min_sync(~0u, f));
   }
+  ATPU_PHASE(3, "cluster and warp carries");
 
-  for (int t = t1 - 1; t >= t0; --t) {
-    const int i = t * 32 + lane;
-    int blen = 0, boff = 1;
-    if (i < B) {
-      const uint32_t b = (uint32_t)best[i];
-      blen = b & 0xFFFF;
-      boff = b >> 16;
-    }
+  uint32_t* pk = reinterpret_cast<uint32_t*>(smem + stage);    // E words
+  for (int top = t1; top > t0; top -= kAhead) {
+    if (top < t1) fetch(top);
 #pragma unroll
-    for (int k = 0; k < kMaxOffsets; ++k) {
-      if (k >= noffs) break;
-      const unsigned m = __ballot_sync(~0u, disagrees(row, i, offs.o[k], B));
-      const unsigned at = m & (~0u << lane);
-      const int nxt = at ? t * 32 + __ffs(at) - 1 : carry[k];
-      if (m) carry[k] = t * 32 + __ffs(m) - 1;
-      const int run = nxt - i;
-      if (run >= kMinMatch && run > blen) {
-        blen = run;
-        boff = offs.o[k];
+    for (int u = 0; u < kAhead; ++u) {
+      const int t = top - 1 - u;
+      if (t < t0) break;
+      const int i = e0 + t * 32 + lane;
+      int blen = ahead[u] & 0xFFFF, boff = ahead[u] >> 16;
+#pragma unroll
+      for (int k = 0; k < kMaxOffsets; ++k) {
+        if (k >= noffs) break;
+        const unsigned m = __ballot_sync(~0u, disagrees(i, offs.o[k]));
+        const unsigned at = m & (~0u << lane);
+        const int nxt = at ? e0 + t * 32 + __ffs(at) - 1 : carry[k];
+        if (m) carry[k] = e0 + t * 32 + __ffs(m) - 1;
+        const int run = nxt - i;
+        if (run >= kMinMatch && run > blen) {
+          blen = run;
+          boff = offs.o[k];
+        }
       }
-    }
-    if (i >= B) continue;
-    if (kLadder) {    // the combined results, for the ladder below
-      mlen[i] = blen;
-      moff[i] = max(boff, 1);
-    } else {
-      finish(i, blen, boff, n, mlen, moff, valid);
+      if (i >= e1) continue;
+      if (kLadder)
+        pk[i - base] = (uint32_t)boff << 16 | (uint32_t)blen;
+      else
+        finish(i, blen, boff, n, mlen, moff, valid);
     }
   }
-  if (!kLadder) return;
+  if (!kLadder) {
+    cluster_wait();
+    ATPU_PHASE(4, "backward pass");
+    return;
+  }
+  cluster.sync();
+  ATPU_PHASE(4, "backward pass");
 
-  // The saturated-match ladder: a position whose match reaches CAPV and
-  // whose successor CAPV bytes on carries the same offset links to it; the
-  // JAX package's ext_passes pointer-doubling passes follow at most
-  // 2^ext_passes - 1 such links (ladder_steps). The links go into a bitmap
-  // in shared memory (one ballot a tile), so a walk step is one shared
-  // load. The walk reads forward only, so the rounds of blockDim positions
-  // go in increasing order and each writes after all of its reads.
-  uint32_t* links = reinterpret_cast<uint32_t*>(row + round16(B));
-  __syncthreads();
-  for (int t = warp; t < ntiles; t += nwarps) {
-    const int i = t * 32 + lane;
-    const bool link = i + capv < B && mlen[i] >= capv &&
-                      moff[i + capv] == moff[i];
-    const unsigned m = __ballot_sync(~0u, link);
-    if (lane == 0) links[t] = m;
-  }
-  __syncthreads();
-  for (int base = 0; base < B; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    int len = 0, off = 1;
-    if (i < B) {
-      int j = i;
-      for (int m = 0; m < ladder_steps && (links[j >> 5] >> (j & 31) & 1);
-           ++m)
-        j += capv;
-      len = (j - i) + mlen[j];
-      off = moff[i];
+  // The combined result at any position x < B of the row, and word g of a
+  // bitmap level (0 past the row), from this CTA or another of the cluster.
+  const int W = E >> 5;
+  uint32_t* lk = pk + E;    // levels x W words
+  const auto packed = [&](int x) -> uint32_t {
+    const unsigned d = (unsigned)(x - base);
+    if (d < (unsigned)E) return pk[d];
+    const int q = x / E;
+    return *cluster.map_shared_rank(pk + (x - q * E), q);
+  };
+  const auto word = [&](const uint32_t* level, int g) -> uint32_t {
+    const unsigned d = (unsigned)(g - rank * W);
+    if (d < (unsigned)W) return level[d];
+    if (g >= K * W) return 0u;
+    const int q = g / W;
+    return *cluster.map_shared_rank(level + (g - q * W), q);
+  };
+  for (int t = warp; t < W; t += nwarps) {
+    const int i = base + t * 32 + lane;
+    bool link = false;
+    if (i + capv < B) {
+      const uint32_t v = pk[i - base];
+      link = (int)(v & 0xFFFF) >= capv && (packed(i + capv) >> 16) == v >> 16;
     }
-    __syncthreads();
-    if (i < B) finish(i, len, off, n, mlen, moff, valid);
+    const unsigned m = __ballot_sync(~0u, link);
+    if (lane == 0) lk[t] = m;
   }
+  cluster.sync();
+  ATPU_PHASE(5, "links");
+  for (int p = 1; p < levels; ++p) {
+    const uint32_t* prev = lk + (p - 1) * W;
+    const int s = capv << (p - 1);
+    for (int w = threadIdx.x; w < W; w += blockDim.x) {
+      const int g = rank * W + w + (s >> 5);
+      lk[p * W + w] = prev[w] & __funnelshift_r(word(prev, g),
+                                                word(prev, g + 1), s & 31);
+    }
+    cluster.sync();
+  }
+  ATPU_PHASE(6, "doubling");
+  for (int i = base + (int)threadIdx.x; i < e1; i += blockDim.x) {
+    const uint32_t v = pk[i - base];
+    int len = v & 0xFFFF;
+    if (lk[(i - base) >> 5] >> (i & 31) & 1) {    // link_p[i] needs link_0[i]
+      int j = i;
+      for (int p = levels - 1; p >= 0; --p)
+        if (word(lk + p * W, j >> 5) >> (j & 31) & 1) j += capv << p;
+      len = (j - i) + (int)(packed(j) & 0xFFFF);
+    }
+    finish(i, len, (int)(v >> 16), n, mlen, moff, valid);
+  }
+  cluster.sync();
+  ATPU_PHASE(7, "descent and finish");
 }
 
 // Above 48 KB a kernel needs the opt-in, once per device and kernel (set
@@ -557,6 +694,76 @@ cudaError_t opt_in(Kernel kernel, bool* opted) {
     if (err != cudaSuccess) return err;
     opted[dev] = true;
   }
+  return cudaSuccess;
+}
+
+// How match_runs lays a batch out on the current device: K CTAs a row (a
+// cluster) of `threads` threads, E positions and `halo` bytes before them a
+// CTA, `stage` bytes of the staged span, `smem` bytes of dynamic shared
+// memory a CTA (the span; with the ladder also E combined words and
+// `levels` bitmaps of E / 32 words), `levels` = P doubled link bitmaps (0:
+// no ladder).
+struct RunsPlan {
+  SmallOffsets offs;
+  int k, e, halo, stage, smem, threads, levels, capv;
+};
+
+// K: the largest power of two up to kMaxRunCluster with n * K CTAs on at
+// most one per SM and a tile a CTA; with the ladder, doubled while a CTA's
+// share does not fit in shared memory (a row of 65,536 needs K >= 2).
+cudaError_t runs_plan(int n, int b, const int* offsets, int noffs,
+                      int ext_passes, int nw, RunsPlan* p) {
+  if (b > 65536 || noffs < 0 || noffs > kMaxOffsets || ext_passes < 0 ||
+      nw < 0)
+    return cudaErrorInvalidValue;
+  p->offs = {};
+  int maxo = 1;
+  for (int k = 0; k < noffs; ++k) {
+    if (offsets[k] < 1) return cudaErrorInvalidValue;
+    p->offs.o[k] = offsets[k];
+    maxo = max(maxo, offsets[k]);
+  }
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  // the SMs, and the most dynamic shared memory a CTA can take (the two
+  // instantiations' static share is the same)
+  static int sms[kMaxDevices] = {}, limit[kMaxDevices] = {};
+  if (!limit[dev]) {
+    int s = 0;
+    cudaFuncAttributes attr;
+    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&attr, match_runs_kernel<true>);
+    if (err != cudaSuccess) return err;
+    sms[dev] = s;
+    limit[dev] = kMaxSmem - (int)attr.sharedSizeBytes;
+  }
+  const long long capv = kMinMatch + 4LL * nw;
+  // P = #{p < ext_passes : CAPV * 2^p < B}: the passes the JAX package runs
+  int levels = 0;
+  while (levels < ext_passes && (capv << levels) < b) ++levels;
+  const int ntiles = (b + 31) / 32;
+  int k = 1;
+  while (2 * k <= kMaxRunCluster && (long long)n * 2 * k <= sms[dev] &&
+         2 * k <= ntiles)
+    k *= 2;
+  const int halo = round16(min(maxo, b));    // an offset past B: no compare
+  for (;;) {
+    p->e = (ntiles + k - 1) / k * 32;
+    p->stage = round16(min(b, p->e + halo));
+    p->smem = p->stage + (levels ? 4 * p->e + 4 * levels * (p->e / 32) : 0);
+    if (p->smem <= limit[dev] || 2 * k > kMaxClusterHw || 2 * k > ntiles)
+      break;
+    k *= 2;
+  }
+  if (p->smem > limit[dev]) return cudaErrorInvalidValue;
+  p->k = k;
+  p->halo = halo;
+  p->threads = min(kMaxRunThreads, p->e);
+  p->levels = levels;
+  p->capv = (int)min(capv, (long long)b);
   return cudaSuccess;
 }
 
@@ -648,32 +855,46 @@ extern "C" int atpu_match_runs(const void* data, const void* best,
                                int noffs, int ext_passes, int nw,
                                void* stream) {
   if (n <= 0 || b <= 0) return 0;
-  if (b > 65536 || noffs < 0 || noffs > kMaxOffsets || ext_passes < 0 ||
-      nw < 0)
-    return (int)cudaErrorInvalidValue;
-  SmallOffsets offs = {};
-  for (int k = 0; k < noffs; ++k) {
-    if (offsets[k] < 1) return (int)cudaErrorInvalidValue;
-    offs.o[k] = offsets[k];
-  }
-  static bool opted[2][kMaxDevices] = {};
-  cudaError_t err = opt_in(match_runs_kernel<false>, opted[0]);
-  if (err == cudaSuccess) err = opt_in(match_runs_kernel<true>, opted[1]);
+  RunsPlan p;
+  cudaError_t err = runs_plan(n, b, offsets, noffs, ext_passes, nw, &p);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (b + 31) / 32;
-  const int threads = tiles * 32 < kMaxRunThreads ? tiles * 32
-                                                   : kMaxRunThreads;
-  const long long capv = kMinMatch + 4LL * nw;
-  // 2^ext_passes - 1 links at most, and fewer than b / capv fit in a row
-  const long long steps = ext_passes == 0 ? 0
-                          : ext_passes >= 17 ? b
-                                             : (1LL << ext_passes) - 1;
-  const int smem = round16(b) + (steps ? 4 * tiles : 0);   // row, links
+  const bool ladder = p.levels > 0;
   const auto kernel =
-      steps ? match_runs_kernel<true> : match_runs_kernel<false>;
-  kernel<<<n, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)data, (const int32_t*)best, (const int32_t*)nlen,
-      (int32_t*)mlen, (int32_t*)moff, (bool*)valid, b, offs, noffs,
-      (int)(steps < b ? steps : b), (int)(capv < b ? capv : b));
+      ladder ? match_runs_kernel<true> : match_runs_kernel<false>;
+  static bool opted[2][kMaxDevices] = {};
+  err = opt_in(kernel, opted[ladder]);
+  if (err == cudaSuccess && p.k > 8)    // past the portable cluster size
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)n * p.k > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n * (unsigned)p.k);
+  cfg.blockDim = dim3((unsigned)p.threads);
+  cfg.dynamicSmemBytes = (size_t)p.smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.k > 1;    // one CTA a row: a plain launch
+  err = cudaLaunchKernelEx(&cfg, kernel, (const uint8_t*)data,
+                           (const int32_t*)best, (const int32_t*)nlen,
+                           (int32_t*)mlen, (int32_t*)moff, (bool*)valid, b,
+                           p.offs, noffs, p.halo, p.e, p.stage, p.levels,
+                           p.capv);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The CTAs a row match_runs launches for these arguments on the current
+// device (a negative CUDA error where it would refuse them).
+extern "C" int atpu_match_runs_ctas(int n, int b, const int* offsets,
+                                    int noffs, int ext_passes, int nw) {
+  if (n <= 0 || b <= 0) return -(int)cudaErrorInvalidValue;
+  RunsPlan p;
+  const cudaError_t err = runs_plan(n, b, offsets, noffs, ext_passes, nw, &p);
+  return err == cudaSuccess ? p.k : -(int)err;
 }

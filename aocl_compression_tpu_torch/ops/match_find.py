@@ -13,7 +13,8 @@ encoder:
                     handed between a warp's lanes, as (offset << 16 |
                     length) at each position;
   match_runs        the exact runs at the small offsets, the saturated-match
-                    ladder and the end-of-block rules: (mlen, moff, valid).
+                    ladder and the end-of-block rules: (mlen, moff, valid),
+                    a cluster of CTAs a row at small batches (runs_ctas).
 
 Each wrapper takes CUDA tensors only, allocates its outputs with
 torch.empty, launches on the current stream and raises when the launch
@@ -66,13 +67,15 @@ def _get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             for name, args in (
-                    ("atpu_match_keys", [p, p, i, i, i]),
-                    ("atpu_match_candidates", [p, p, p] + [i] * 6),
+                    ("atpu_match_keys", [p, p, i, i, i, p]),
+                    ("atpu_match_candidates", [p, p, p] + [i] * 6 + [p]),
                     ("atpu_match_runs",
-                     [p] * 6 + [i, i, ctypes.POINTER(i)] + [i] * 3)):
+                     [p] * 6 + [i, i, ctypes.POINTER(i)] + [i] * 3 + [p]),
+                    ("atpu_match_runs_ctas",
+                     [i, i, ctypes.POINTER(i)] + [i] * 3)):
                 fn = getattr(lib, name)
                 fn.restype = i
-                fn.argtypes = args + [p]
+                fn.argtypes = args
             _lib = lib
     return _lib
 
@@ -142,6 +145,16 @@ def match_candidates(data_u8: torch.Tensor, skey: torch.Tensor, B: int,
     return best
 
 
+def _runs_args(small_offsets: tuple, nw: int, ext_passes: int):
+    offs = [int(o) for o in small_offsets]
+    if len(offs) > MAX_OFFSETS or min(offs, default=1) < 1 or \
+            ext_passes < 0 or nw < 0:
+        raise ValueError(f"match_runs takes at most {MAX_OFFSETS} small "
+                         f"offsets >= 1, ext_passes >= 0 and nw >= 0, got "
+                         f"{small_offsets}, {ext_passes}, {nw}")
+    return (ctypes.c_int * MAX_OFFSETS)(*offs), len(offs)
+
+
 def match_runs(data_u8: torch.Tensor, best: torch.Tensor, n: torch.Tensor,
                B: int, small_offsets: tuple, nw: int, ext_passes: int):
     """data_u8 (N, B) uint8, best (N, B) int32 from match_candidates, n (N,)
@@ -149,19 +162,26 @@ def match_runs(data_u8: torch.Tensor, best: torch.Tensor, n: torch.Tensor,
     N, dev = _data(data_u8, B)
     _check("best", best, torch.int32, (N, B), dev)
     _check("n", n, torch.int32, (N,), dev)
-    offs = [int(o) for o in small_offsets]
-    if len(offs) > MAX_OFFSETS or min(offs, default=1) < 1 or \
-            ext_passes < 0 or nw < 0:
-        raise ValueError(f"match_runs takes at most {MAX_OFFSETS} small "
-                         f"offsets >= 1, ext_passes >= 0 and nw >= 0, got "
-                         f"{small_offsets}, {ext_passes}, {nw}")
+    arr, noffs = _runs_args(small_offsets, nw, ext_passes)
     mlen = torch.empty((N, B), dtype=torch.int32, device=dev)
     moff = torch.empty((N, B), dtype=torch.int32, device=dev)
     valid = torch.empty((N, B), dtype=torch.bool, device=dev)
     if N:
-        arr = (ctypes.c_int * MAX_OFFSETS)(*offs)
         _launch("match_runs", _get_lib().atpu_match_runs, dev,
                 data_u8.data_ptr(), best.data_ptr(), n.data_ptr(),
                 mlen.data_ptr(), moff.data_ptr(), valid.data_ptr(), N, B,
-                arr, len(offs), ext_passes, nw)
+                arr, noffs, ext_passes, nw)
     return mlen, moff, valid
+
+
+def runs_ctas(N: int, B: int, small_offsets: tuple, nw: int,
+              ext_passes: int, device=None) -> int:
+    """The CTAs a row (one cluster) that match_runs launches for N rows of
+    B on the CUDA device (the current one by default)."""
+    arr, noffs = _runs_args(small_offsets, nw, ext_passes)
+    with torch.cuda.device(device):
+        k = _get_lib().atpu_match_runs_ctas(N, B, arr, noffs, ext_passes, nw)
+    if k <= 0:
+        raise RuntimeError(f"match_runs takes no N={N}, B={B}: CUDA error "
+                           f"{-k}")
+    return k

@@ -43,7 +43,10 @@ non-zero before the last line:
      yardstick) and of the whole kernel path beside the plain versions'
      times and the HBM bounds; the peak memory of one call of each path)
      and on seeded adversarial rows at every encoder's setting and four
-     more (match_adversarial, B = 256 and 4,096);
+     more (match_adversarial, B = 256 and 4,096); match_runs alone on
+     seeded rows whose runs and ladder chains cross its CTAs' slices at N
+     = 1, 2, 3, 5 and 64 rows of 65,536 and 1, 9 and 17 of 4,096, with
+     the CTAs a row it picks at each (runs_adversarial);
   5. the bench encoder config (G=8, depth 5, nw 5, subm 64, lazy 1,
      ext_passes 5) on the same corpus, and subchain_reach against its
      plain version on its real input (SUBM 64); the match kernels on its
@@ -166,7 +169,8 @@ non-zero before the last line:
      phase 4's stream); sharded.compress_blocks_multi on four virtual
      shards of the card (bodies and tails equal phase 4's, two compact_rows
      launches a shard, MB/s and peak memory beside the single-device tier
-     in turns); snappy, zlib 1 and 2 and zstd 1 through their *_multi
+     in turns; the match kernels on a shard's real call, N = 64, as in
+     phase 4); snappy, zlib 1 and 2 and zstd 1 through their *_multi
      variants on four virtual shards (each stream equal to its phase's,
      MB/s beside the single-device variant in turns, fse_encode_scan,
      kraft_absorb and weights_fse_encode once a zstd shard, kraft_absorb
@@ -1011,6 +1015,105 @@ def match_adversarial(dev):
         st["max_abs_err"] = max(st["max_abs_err"], err)
 
 
+def ladder_levels(Bk: int, nw: int, ext_passes: int) -> int:
+    """P: the ladder's doubling passes, those of ext_passes whose stride
+    CAPV * 2^p (CAPV = 4 + 4*nw) stays below Bk."""
+    capv, p = 4 + 4 * nw, 0
+    while p < ext_passes and capv << p < Bk:
+        p += 1
+    return p
+
+
+def runs_rows(N: int, Bk: int, nw: int, ext_passes: int, seed: int):
+    """Seeded inputs of match_runs alone whose runs and ladder chains cross
+    the slices of a row at every cluster size (K = 2, 4, 8 and 16 CTAs):
+    (data (N, Bk) uint8, best (N, Bk) int32 as match_candidates gives it
+    (offset << 16 | length, offsets >= 1), n (N,) int32). Row kinds in
+    turn: all equal (a run at offset 1 over the row, links everywhere); a
+    random segment longer than half the row repeated at its length, its
+    candidates saturated (the ladder runs over the rest of the row); chains
+    of exactly 2^P - 1 and 2^P links (P = ladder_levels) ending at every
+    slice boundary and at Bk - 1, among unsaturated candidates; runs of
+    periods 1-8 across every slice boundary, n a little short of Bk."""
+    rng = np.random.default_rng(seed)
+    capv = 4 + 4 * nw
+    chain = 2 ** ladder_levels(Bk, nw, ext_passes)
+    tiles = -(-Bk // 32)
+    cuts = sorted({-(-tiles // k) * 32 * c for k in (2, 4, 8, 16)
+                   for c in range(1, k)} - {0} | {Bk - 1})
+    cuts = [c for c in cuts if c < Bk]
+    data = rng.integers(0, 256, (N, Bk)).astype(np.uint8)
+    off = rng.integers(1, 1 << 16, (N, Bk))
+    ln = rng.integers(0, capv, (N, Bk))
+    n = np.full(N, Bk, np.int32)
+    for r in range(N):
+        kind = r % 4
+        if kind == 0:
+            data[r] = 97
+        elif kind == 1:
+            seg = min(Bk - 1, Bk // 2 + 37)
+            data[r, seg:] = data[r, :Bk - seg]
+            off[r, seg:], ln[r, seg:] = seg, capv
+        elif kind == 2:    # no two chains overlap: each ends below the last
+            free, placed = Bk, 0
+            for end in reversed(cuts):
+                links = chain - 1 + placed % 2
+                start = end - links * capv
+                if start < 0 or end >= free:
+                    continue
+                at = start + capv * np.arange(links + 1)
+                off[r, at] = 1 + (placed * 7919) % 65535
+                ln[r, at] = capv
+                ln[r, end] = capv - 1    # linked into, not saturated
+                free, placed = start, placed + 1
+        else:
+            for end in cuts:
+                period = int(rng.integers(1, 9))
+                span = int(rng.integers(8, 3 * capv))
+                lo, hi = max(0, end - span // 2), min(Bk, end + span // 2)
+                data[r, lo:hi] = np.resize(data[r, lo:lo + period], hi - lo)
+            n[r] = Bk - int(rng.integers(0, 40))
+    best = (off << 16 | ln).astype(np.uint32).view(np.int32)
+    return (torch.from_numpy(data), torch.from_numpy(best),
+            torch.from_numpy(n))
+
+
+# match_runs' settings on the seeded rows: every encoder's (offsets 1, 2
+# and 4; nw 8, or nw 16 and the other defaults) has no ladder
+RUNS_SETTINGS = {
+    "lz4 main path (nw 8)": ((1, 2, 4), 8, 0),
+    "bench config (nw 5, ext_passes 5)": ((1, 2, 4), 5, 5),
+    "offsets 1, 2, 4, 8 (nw 4, ext_passes 3)": ((1, 2, 4, 8), 4, 3),
+}
+
+
+def runs_adversarial(dev):
+    """match_runs against its plain version on runs_rows at N = 1, 2, 3, 5
+    and 64 rows of 65,536 and at N = 1, 9 and 17 rows of 4,096, at
+    RUNS_SETTINGS: the cluster sizes the launcher picks (printed: 16, 8, 4
+    and 2 CTAs a row), runs and ladder chains across its slices."""
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.ops import match_find as mf
+    err, ctas = 0, []
+    for N, Bk in ((1, B), (2, B), (3, B), (5, B), (64, B), (1, 4096),
+                  (9, 4096), (17, 4096)):
+        for name, (offs, nw, ext) in RUNS_SETTINGS.items():
+            data, best, n = (x.to(dev) for x in runs_rows(
+                N, Bk, nw, ext, seed=N * Bk + ext))
+            got = mf.match_runs(data, best, n, Bk, offs, nw, ext)
+            err = max(err, check_equal(
+                f"match_runs (seeded rows, N={N}, B={Bk}, {name})",
+                list(got), list(ld._match_runs_plain(data, best, n, Bk, offs,
+                                                     nw, ext))))
+            ctas.append(f"N={N} B={Bk} {name}: K="
+                        f"{mf.runs_ctas(N, Bk, offs, nw, ext)}")
+    print(f"[match kernel] match_runs vs plain on seeded rows (runs and "
+          f"ladder chains across the CTAs' slices): equal; CTAs a row: "
+          + "; ".join(ctas))
+    MATCH["match_runs"]["max_abs_err"] = max(
+        MATCH["match_runs"]["max_abs_err"], err)
+
+
 def phase_main(data: bytes, blocks, arr, lens):
     import aocl_compression_tpu_torch as act
     from aocl_compression_tpu_torch.codecs.lz4 import _device_bodies
@@ -1063,6 +1166,7 @@ def phase_main(data: bytes, blocks, arr, lens):
     STREAMS["lz4"] = c
     check_matches("lz4 main path", lambda: act.compress(h, data), main=True)
     match_adversarial(dev)
+    runs_adversarial(dev)
 
     # the chain marking of the main path's encode: subchain_reach on its
     # real input, and one _grid_select call (device ops, memory)
@@ -2803,6 +2907,7 @@ def phase_multi(data: bytes, blocks, dev):
         raise AssertionError("multi: compact_rows did not launch once a "
                              "shard")
     paths["multi: lz4 4 virtual shards"] = launches
+    check_matches("a shard of 4 virtual shards", multi)
     print(f"[multi] compress_blocks_multi(blocks, 2, num_shards=4, devices="
           f"[{dev}] * 4): bodies and tails equal phase 4's path; "
           f"compact_rows launches in 3 calls {launches}; "

@@ -15,17 +15,21 @@ design of the kernels:
 
 The current tree is always timed, as "this tree". --set NAME=VALUE adds a
 copy of this tree with one constant of match_find.cu set anew, e.g.
-kMaxCluster=1 (match_keys on one CTA a row at every N) or kMinSlice=512
-(match_candidates' rows cut into fewer slices at small N). Each source is built with nvcc into
+kMaxCluster=1 (match_keys on one CTA a row at every N), kMinSlice=512
+(match_candidates' rows cut into fewer slices at small N), kMaxRunCluster=8
+(match_runs on up to 8 CTAs a row) or kRunAhead=8 (match_runs reading
+the best candidates of 8 tiles ahead, 16 with the ladder). Each source is built with nvcc into
 _time_build/match_<n>/ (git-ignored) and bound with ctypes.
 A tree whose match_keys gives the keys unsorted (the first design) is
 followed by torch.sort of them, as its caller did.
 
 Inputs: the real _find_matches call of each path of chip_smoke.py on its
 16.8 MB corpus (256 blocks of 64 KiB, seed 42): the lz4 main path (depth
-4, nw 8), the bench config (5, 5, ladder), zlib 1 (max_off 32,768), zstd 1
-(depth 8), the lzma 6 assist (depth 16), lz4hc 9 (depth 11, nw 32) and the
-LZ4 frame's device tier on one 64 KiB block (N = 1). For each input and
+4, nw 8), the bench config (5, 5, ladder), one shard of the lz4 encoder
+on four virtual shards of the card (N = 64, phase 13), zlib 1 (max_off
+32,768), zstd 1 (depth 8), the lzma 6 assist (depth 16), lz4hc 9 (depth
+11, nw 32) and the LZ4 frame's device tier on one 64 KiB block (N = 1);
+with this tree's match_runs CTAs a row at each. For each input and
 tree, by CUDA-graph replay of 20 calls (chip_smoke.graph_ms), in the order
 given and again in reverse (A B B A): match_keys (with the first design's
 torch.sort after it, and that sort alone), match_candidates on the same
@@ -104,6 +108,7 @@ def inputs(dev):
     import aocl_compression_tpu_torch as act
     from aocl_compression_tpu_torch.codecs import lz4_frame
     from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.parallel import sharded
     from aocl_compression_tpu_torch.utils.config import TIER_TORCH
     B, N = cs.B, cs.N
     data = cs.corpus(B * N)
@@ -113,6 +118,7 @@ def inputs(dev):
     bench = ld.make_encoder(B, 8, 5, 5, subm=64, lazy=1, ext_passes=5)
     runs = [("lz4 main path", dict(method="lz4")),
             ("bench config", None),
+            ("a shard of 4 virtual shards, N = 64", None),
             ("zlib 1", dict(method="zlib", level=1)),
             ("zstd 1", dict(method="zstd", level=1)),
             ("lzma 6 assist", dict(method="lzma", level=6)),
@@ -122,6 +128,10 @@ def inputs(dev):
     for label, kw in runs:
         if label == "bench config":
             run = lambda: bench(arr, lens)  # noqa: E731
+        elif label.startswith("a shard"):
+            blocks = [data[i * B:(i + 1) * B] for i in range(N)]
+            run = lambda: sharded.compress_blocks_multi(  # noqa: E731
+                blocks, 2, 4, device=dev, devices=[dev] * 4)
         elif label.startswith("frame"):
             run = lambda: lz4_frame.compress_frame(  # noqa: E731
                 data[:B], max_tier=TIER_TORCH, device=dev)
@@ -205,6 +215,7 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     print(f"[card] {smi}")
     from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.ops import match_find as mf
     dev = torch.device("cuda")
     trees = ([("this tree", ROOT)] + [(d, d) for d in opts.src]
              + [(f"this tree, {v}", variant(v)) for v in opts.set])
@@ -263,7 +274,10 @@ def main():
         bounds[label] = {k: v / cs.HBM_BYTES_PER_S * 1e3
                          for k, v in nbytes.items()}
         setting = ", ".join(f"{k} {v}" for k, v in kw.items())
-        print(f"[match] {label} (N={N}, B={Bk}, {setting})")
+        ctas = mf.runs_ctas(N, Bk, kw["small_offsets"], kw["nw"],
+                            kw["ext_passes"])
+        print(f"[match] {label} (N={N}, B={Bk}, {setting}; this tree's "
+              f"match_runs: {ctas} CTA(s) a row)")
         for tree, stages in got.items():
             print(f"[match]   {tree}: " + "; ".join(
                 f"{stage} {' / '.join(f'{t:.4f}' for t in ts)} ms"

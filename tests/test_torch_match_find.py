@@ -23,14 +23,24 @@ from lane l - s, the warp votes that end the walks) give the plain
 version's best candidates at every setting, past the halo (depth 20) and
 past the registers (nw 40). Tolerance: exact equality on every output.
 
+A numpy model of match_runs' design (a row over a cluster of 1, 2, 8 or
+16 CTAs, the first disagreements and their suffix minimum across CTAs and
+warps, the 32-bit packing, the doubled link bitmaps and the descent)
+equals _match_runs_plain at every setting and on chip_smoke.runs_rows
+(ladder chains of 2^P - 1 and 2^P links ending at slice boundaries and at
+B - 1); the descent equals the walk for P = 1..6.
+
 The JAX package is imported inside a fixture, so the card-only tests (the
-kernels against the plain version at N = 1, 31 and 257 and B = 256, 4,096
-and 65,536; match_keys at every hash_bits; no torch.sort on the card) also
-run where JAX is absent:
+kernels against the plain version at N = 1, 2, 3, 5, 9, 31, 64 and 257
+and B = 256, 4,096 and 65,536; match_runs on the seeded boundary rows;
+match_keys at every hash_bits; no torch.sort on the card) also run where
+JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_match_find.py
 """
 
 import functools
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -38,6 +48,12 @@ import torch
 
 from aocl_compression_tpu_torch.ops import lz4_device as tdev
 from aocl_compression_tpu_torch.ops import match_find
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+SMOKE = importlib.util.module_from_spec(_spec)    # its match_runs rows
+_spec.loader.exec_module(SMOKE)
 
 B = 1024
 
@@ -153,6 +169,19 @@ def _batch(Bk, seed, N=None):
             np.array([n for _, n in rows], np.int32))
 
 
+def _walk(blen, boff, Bk, capv, ext_passes):
+    """The ladder as a walk: from each position, at most 2^ext_passes - 1
+    links of stride capv (saturated here, the same offset capv on)."""
+    out = blen.copy()
+    for i in range(Bk):
+        j, m = i, 0
+        while (m < 2 ** ext_passes - 1 and j + capv < Bk
+               and blen[j] >= capv and boff[j + capv] == boff[j]):
+            j, m = j + capv, m + 1
+        out[i] = (j - i) + blen[j]
+    return out
+
+
 def _model(a, n, Bk, max_off=0, depth=2, nw=tdev.NW,
            small_offsets=tdev.SMALL_OFFSETS, hash_bits=tdev.HASH_BITS,
            nw_deep=0, ext_passes=0):
@@ -186,15 +215,7 @@ def _model(a, n, Bk, max_off=0, depth=2, nw=tdev.NW,
         blen = np.where(better, run[:Bk], blen)
         boff = np.where(better, o, boff)
     if ext_passes:
-        capv = 4 + 4 * nw
-        out = blen.copy()
-        for i in range(Bk):
-            j, m = i, 0
-            while (m < 2 ** ext_passes - 1 and j + capv < Bk
-                   and blen[j] >= capv and boff[j + capv] == boff[j]):
-                j, m = j + capv, m + 1
-            out[i] = (j - i) + blen[j]
-        blen = out
+        blen = _walk(blen, boff, Bk, 4 + 4 * nw, ext_passes)
     idx = np.arange(Bk)
     blen = np.minimum(blen, n - 5 - idx)
     valid = (blen >= 4) & (idx <= n - 13) & (idx < n)
@@ -333,6 +354,114 @@ def _candidates_model(a, skey, Bk, max_off, depth, nw, nw_deep, slices):
     return out
 
 
+RUN_WARPS = 32    # match_runs' most warps a CTA (kMaxRunThreads / 32)
+
+
+def _slices(Bk, ctas):
+    """match_runs' cut of a row over a cluster of `ctas` CTAs: E positions
+    a CTA (whole tiles) and its warps (a warp a tile at least)."""
+    E = -(-(-(-Bk // 32)) // ctas) * 32
+    return E, min(RUN_WARPS, E // 32)
+
+
+def _runs_model(a, blen, boff, Bk, offsets, ctas):
+    """match_runs' runs on one row over `ctas` CTAs. Per offset: each
+    warp's first disagreement in its run of tiles, each CTA's, the minimum
+    of the CTAs after a CTA and of the warps after a warp (the carry), then
+    each warp's walk back over its tiles, a lane's next disagreement the
+    first at or after it in its tile's mask, else the carry; a run of at
+    least 4 longer than the candidate replaces it. Returns (blen, boff),
+    each run checked to fit the 16-bit length of the packed word."""
+    E, nwarps = _slices(Bk, ctas)
+    tiles = -(-Bk // 32)
+    idx = np.arange(tiles * 32)
+    lanes = np.arange(32)
+    blen, boff = blen.copy(), boff.copy()
+    warps = []    # (CTA, first tile, end tile) of each warp, in order
+    for c in range(ctas):
+        e1 = min(Bk, c * E + E)
+        e0 = min(c * E, e1)
+        nt = -(-(e1 - e0) // 32)
+        per = -(-nt // nwarps)
+        for w in range(nwarps):
+            t0 = min(nt, w * per)
+            warps.append((c, e0 // 32 + t0, e0 // 32 + min(nt, t0 + per)))
+    for o in offsets:
+        ai = a[np.minimum(idx, Bk - 1)]
+        ao = a[np.clip(idx - o, 0, Bk - 1)]
+        mask = ((idx < Bk) & ((idx < o) | (ai != ao))).reshape(tiles, 32)
+        first = np.array([t0 * 32 + np.flatnonzero(mask[t0:t1])[0]
+                          if mask[t0:t1].any() else Bk
+                          for _, t0, t1 in warps]).reshape(ctas, nwarps)
+        cta_first = first.min(axis=1)
+        nxt = np.empty(tiles * 32, np.int64)
+        for k, (c, t0, t1) in enumerate(warps):
+            w = k % nwarps
+            carry = min(cta_first[c + 1:].min(initial=Bk),
+                        first[c, w + 1:].min(initial=Bk))
+            for t in range(t1 - 1, t0 - 1, -1):
+                at = np.where(mask[t], lanes, 32)
+                at = np.minimum.accumulate(at[::-1])[::-1]
+                nxt[t * 32:t * 32 + 32] = np.where(at < 32, t * 32 + at,
+                                                   carry)
+                if mask[t].any():
+                    carry = t * 32 + int(np.argmax(mask[t]))
+        run = nxt[:Bk] - np.arange(Bk)
+        assert run[0] == 0 and run.max() <= 0xFFFF
+        better = (run >= 4) & (run > blen)
+        blen = np.where(better, run, blen)
+        boff = np.where(better, o, boff)
+    return blen, boff
+
+
+def _ladder_model(blen, boff, Bk, capv, ext_passes, ctas):
+    """match_runs' ladder on one row: each position's (off << 16 | len) as
+    one 32-bit word, the link bitmap in 32-bit words over the cluster's
+    slices (link_0[i]: i + capv < Bk, len[i] >= capv, off[i + capv] ==
+    off[i]), P doubled bitmaps, link_{p+1} = link_p & (link_p shifted by
+    capv * 2^p, two words and a funnel shift), and the descent from p = P -
+    1 to 0. Returns (len, off)."""
+    assert boff.min() >= 1 and boff.max() <= 0xFFFF and blen.max() <= 0xFFFF
+    word = (boff.astype(np.uint32) << 16) | blen.astype(np.uint32)
+    plen, poff = (word & 0xFFFF).astype(np.int64), word >> 16
+    levels = 0
+    while levels < ext_passes and capv << levels < Bk:
+        levels += 1
+    E, _ = _slices(Bk, ctas)
+    nwords = ctas * E // 32
+    i = np.arange(Bk - capv) if capv < Bk else np.arange(0)
+    link = np.zeros(nwords * 32, np.uint64)
+    link[i] = (plen[i] >= capv) & (poff[i + capv] == poff[i])
+    bits = [(link.reshape(nwords, 32) << np.arange(32, dtype=np.uint64)).sum(
+        axis=1)]
+    for p in range(1, levels):
+        s = capv << (p - 1)
+        prev = np.concatenate([bits[-1], np.zeros(s // 32 + 2, np.uint64)])
+        g = np.arange(nwords) + s // 32
+        shifted = ((prev[g + 1] << np.uint64(32) | prev[g])
+                   >> np.uint64(s % 32)) & np.uint64(0xFFFFFFFF)
+        bits.append(bits[-1] & shifted)
+    j = np.arange(Bk)
+    for p in range(levels - 1, -1, -1):
+        hit = (bits[p][j >> 5] >> (j & 31).astype(np.uint64)) & np.uint64(1)
+        j = j + np.where(hit == 1, capv << p, 0)
+    return (j - np.arange(Bk)) + plen[j], poff.astype(np.int64)
+
+
+def _runs_kernel_model(a, best, n, Bk, small_offsets, nw, ext_passes, ctas):
+    """The kernel match_runs on one row: runs, ladder, end-of-block rules."""
+    best = best.astype(np.int64) & 0xFFFFFFFF
+    blen, boff = _runs_model(a, best & 0xFFFF, best >> 16, Bk,
+                             small_offsets, ctas)
+    if ext_passes:
+        blen, boff = _ladder_model(blen, boff, Bk, 4 + 4 * nw, ext_passes,
+                                   ctas)
+    idx = np.arange(Bk)
+    blen = np.minimum(blen, n - 5 - idx)
+    valid = (blen >= 4) & (idx <= n - 13) & (idx < n)
+    return np.where(valid, blen, 1), np.maximum(boff, 1), valid
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -428,6 +557,81 @@ def test_candidates_model_matches_plain(name, Bk):
             want[i].numpy().view(np.uint32))
 
 
+@pytest.mark.parametrize("name,Bk", CASES)
+def test_runs_model_matches_plain(name, Bk):
+    """match_runs' design (the row over 1, 2 or 16 CTAs, the suffix minimum
+    across CTAs and warps, the 32-bit packing, the doubled bitmaps and the
+    descent) gives _match_runs_plain's outputs at every setting on the
+    plain version's own best candidates."""
+    arr, lens = _batch(Bk, seed=Bk + 1)
+    kw = dict(max_off=0, depth=2, nw=tdev.NW, nw_deep=0,
+              hash_bits=tdev.HASH_BITS, small_offsets=tdev.SMALL_OFFSETS,
+              ext_passes=0)
+    kw.update(SETTINGS[name])
+    skey = tdev._match_sorted_keys_plain(_t(arr), Bk, kw["hash_bits"])
+    best = tdev._match_candidates_plain(_t(arr), skey, Bk, kw["max_off"],
+                                        kw["depth"], kw["nw"], kw["nw_deep"])
+    runs = (kw["small_offsets"], kw["nw"], kw["ext_passes"])
+    want = tdev._match_runs_plain(_t(arr), best, _t(lens), Bk, *runs)
+    for i in range(arr.shape[0]):
+        for ctas in (1, 2, 16):
+            _eq([w[i] for w in want], _runs_kernel_model(
+                arr[i], best[i].numpy(), int(lens[i]), Bk, *runs, ctas))
+
+
+@pytest.mark.parametrize("setting", list(SMOKE.RUNS_SETTINGS))
+@pytest.mark.parametrize("Bk", [256, 1000, 4096])
+def test_runs_model_on_boundary_rows(setting, Bk):
+    """The same on chip_smoke.runs_rows: an all-equal row, a repeat longer
+    than half the row, ladder chains of 2^P - 1 and 2^P links ending at the
+    slice boundaries of 2, 4, 8 and 16 CTAs and at B - 1, and runs across
+    them; at B = 1,000 the last CTA's slice is short or empty."""
+    offs, nw, ext = SMOKE.RUNS_SETTINGS[setting]
+    data, best, n = SMOKE.runs_rows(4, Bk, nw, ext, seed=Bk + ext)
+    want = tdev._match_runs_plain(data, best, n, Bk, offs, nw, ext)
+    reach = 2 ** SMOKE.ladder_levels(Bk, nw, ext) * (4 + 4 * nw)
+    if ext and reach < Bk // 2:    # a chain of 2^P links meets the cap
+        assert (want[0][2] == reach).any()
+    for i in range(4):
+        for ctas in (1, 2, 8, 16):
+            _eq([w[i] for w in want], _runs_kernel_model(
+                data[i].numpy(), best[i].numpy(), int(n[i]), Bk, offs, nw,
+                ext, ctas))
+
+
+@pytest.mark.parametrize("levels", range(1, 7))
+@pytest.mark.parametrize("capv", [8, 24, 100, 300])
+def test_descent_equals_walk(levels, capv):
+    """The descent over the doubled bitmaps takes min(links, 2^P - 1)
+    links, as the walk does, on random saturated chains (runs of equal
+    offsets), chains ending at B and a stride at or past B."""
+    Bk = 1000
+    rng = np.random.default_rng(levels * capv)
+    blen = np.where(rng.random(Bk) < 0.8, capv + rng.integers(0, 3, Bk),
+                    rng.integers(0, capv, Bk))
+    boff = 1 + np.repeat(rng.integers(0, 3, Bk // 50 + 1), 50)[:Bk]
+    blen[-capv - 1:] = capv    # chains that end only at B
+    boff[-3 * capv:] = 7
+    for ext in (levels, levels + 3):
+        for ctas in (1, 8):
+            got, off = _ladder_model(blen, boff, Bk, capv, ext, ctas)
+            np.testing.assert_array_equal(
+                got, _walk(blen, boff, Bk, capv, ext))
+            np.testing.assert_array_equal(off, boff)
+    big = _ladder_model(blen, boff, Bk, Bk, levels, 2)[0]    # CAPV >= B
+    np.testing.assert_array_equal(big, blen)
+
+
+def test_packing_fits_at_full_block():
+    """At B = 65,536 a run fits the packed word's 16 bits: the all-equal
+    row's run at offset 1 from position 1 is 65,535, at 0 it is 0."""
+    Bk = 65536
+    a = np.full(Bk, 7, np.uint8)
+    blen, boff = _runs_model(a, np.zeros(Bk, np.int64), np.ones(Bk, np.int64),
+                             Bk, (1,), 1)
+    assert blen[0] == 0 and blen[1] == 0xFFFF and boff[1] == 1
+
+
 def test_rows_hold_the_edges():
     """The rows do hold what they are meant to: a collision the nearest
     candidate loses to a deeper one, matches at offsets 40 and 41, runs at
@@ -475,12 +679,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 31, 257])
+@pytest.mark.parametrize("N", [1, 2, 3, 5, 9, 31, 64, 257])
 @pytest.mark.parametrize("Bk", [256, 4096, 65536])
 def test_kernels_match_plain(cuda_device, N, Bk):
     """Every stage and every output of the kernel path equal to the plain
     version on the card, at every setting, on seeded rows of every kind
-    (and random ones): match_keys gives the plain sorted keys, and each of
+    (and random ones), at the N where match_runs' CTAs a row change (16
+    up to 8 rows, 8 at 9, 4 at 31, 2 at 64, 1 at 257; 2 with the ladder
+    at 65,536):
+    match_keys gives the plain sorted keys, and each of
     match_keys and match_candidates launches twice a setting (alone and in
     _find_matches), match_runs once."""
     arr, lens = _batch(Bk, seed=N * Bk, N=N)
@@ -503,18 +710,49 @@ def test_kernels_match_plain(cuda_device, N, Bk):
 
 
 @pytest.mark.cuda
-def test_kernels_take_unaligned_rows(cuda_device):
+@pytest.mark.parametrize("N", [2, 3, 5, 7, 9, 64])
+def test_kernels_take_unaligned_rows(cuda_device, N):
     """A batch that starts off a 16-byte boundary, and B not a multiple of
-    16 (the wrapper takes any B up to 65,536)."""
-    arr, lens = _batch(1000, seed=8, N=7)
-    flat = torch.zeros(7 * 1000 + 3, dtype=torch.uint8)
+    16 (the wrapper takes any B up to 65,536), over 16, 8 and 2 CTAs a
+    row in match_runs."""
+    arr, lens = _batch(1000, seed=8, N=N)
+    flat = torch.zeros(N * 1000 + 3, dtype=torch.uint8)
     flat[3:] = _t(arr).reshape(-1)
-    data = flat.to(cuda_device)[3:].view(7, 1000)
+    data = flat.to(cuda_device)[3:].view(N, 1000)
     n = _t(lens).to(cuda_device)
     for kw in (dict(depth=4, nw=8), dict(depth=5, nw=5, ext_passes=5)):
         got = tdev._find_matches(data, n, 1000, **kw)
         torch.cuda.synchronize()
         _eq(got, tdev._find_matches_plain(data, n, 1000, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", list(SMOKE.RUNS_SETTINGS))
+@pytest.mark.parametrize("N,Bk", [(1, 65536), (2, 65536), (3, 65536),
+                                  (5, 65536), (64, 65536), (1, 4096),
+                                  (9, 4096), (17, 4096), (64, 4096),
+                                  (5, 1000)])
+def test_runs_boundary_rows(cuda_device, setting, N, Bk):
+    """match_runs equal to _match_runs_plain on chip_smoke.runs_rows (runs
+    and ladder chains across the CTAs' slices), one launch a call, with
+    the CTAs a row the launcher states: the largest power of two up to 16
+    with N * K on the SMs and a tile a CTA, at least 2 with the ladder at
+    B = 65,536."""
+    offs, nw, ext = SMOKE.RUNS_SETTINGS[setting]
+    data, best, n = (x.to(cuda_device) for x in SMOKE.runs_rows(
+        N, Bk, nw, ext, seed=N + Bk + ext))
+    before = match_find.launches["match_runs"]
+    got = match_find.match_runs(data, best, n, Bk, offs, nw, ext)
+    torch.cuda.synchronize()
+    assert match_find.launches["match_runs"] == before + 1
+    _eq(got, tdev._match_runs_plain(data, best, n, Bk, offs, nw, ext))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    k = 1
+    while 2 * k <= 16 and N * 2 * k <= sms and 2 * k <= -(-Bk // 32):
+        k *= 2
+    if ext and Bk == 65536:
+        k = max(k, 2)
+    assert match_find.runs_ctas(N, Bk, offs, nw, ext) == k
 
 
 @pytest.mark.cuda
