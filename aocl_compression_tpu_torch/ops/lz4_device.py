@@ -27,7 +27,9 @@ Encode (per block, batched):
   4. emission       — every output byte is sourced from the input byte
                       domain; per-byte fields come from cummax/cummin fills
                       on the tile domain and one sort of (out_pos<<8 | byte)
-                      materializes the stream.
+                      materializes the stream (on the card: the kernel
+                      emit_lz4, which writes each byte at its rank among
+                      the row's output positions, with no sort).
 
 Exact parse (G = 0, accel <= 1; the lz4hc device tier): the serial greedy
 chain on the byte domain (_greedy_parse, marked by _chain_marks: the
@@ -581,7 +583,24 @@ def _nmx_of(ml):
 
 def _emit_sorted(data_u8, n, sel, cpos, cml, coff, B: int, G: int):
     """Gather-free serializer: returns (out (N, B) uint8, body (N,),
-    tail (N,), flag (N,)).
+    tail (N,), flag (N,)), as _emit_sorted_plain defines them.
+
+    A CUDA tensor runs the kernel emit_lz4 (csrc/emit_sorted.cu: each
+    output byte written at its rank among the row's output positions, no
+    sort) and nothing else, a CPU tensor the plain version.
+    """
+    if data_u8.is_cuda:
+        from . import emit_sorted as es
+        return es.emit_lz4(data_u8.contiguous(), n.to(_I32).contiguous(),
+                           sel, cpos, cml, coff, B, G)
+    if data_u8.device.type == "cpu":
+        return _emit_sorted_plain(data_u8, n, sel, cpos, cml, coff, B, G)
+    raise ValueError(f"_emit_sorted: unsupported device {data_u8.device}")
+
+
+def _emit_sorted_plain(data_u8, n, sel, cpos, cml, coff, B: int, G: int):
+    """PyTorch version of _emit_sorted on any device: returns (out (N, B)
+    uint8, body (N,), tail (N,), flag (N,)).
 
     Every output byte is sourced from the INPUT byte domain:
       - literal bytes carry their own input byte;

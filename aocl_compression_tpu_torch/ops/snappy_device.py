@@ -19,7 +19,8 @@ are; the codec writes the one preamble.
 
 Encode: G >= 2 (accel >= 2) runs the sort-emit skeleton of the LZ4
 encoder on the tile domain (_emit_snappy_sorted, rows of B bytes, the
-trailing literal element appended on the host); G = 0 the exact greedy
+trailing literal element appended on the host; on the card the kernel
+emit_snappy, with no sort); G = 0 the exact greedy
 parse and the fill + gather serializer (_emit_snappy, rows of
 out_capacity(B) bytes, complete streams).
 
@@ -187,6 +188,26 @@ def _seq_size(lit, ml, off):
 
 
 def _emit_snappy_sorted(data_u8, n, sel, cpos, cml, coff, B: int, G: int):
+    """The snappy sort-emit serializer: (out (N, B) uint8, body (N,), tail
+    literals (N,), flag (N,)), as _emit_snappy_sorted_plain defines them.
+
+    A CUDA tensor runs the kernel emit_snappy (csrc/emit_sorted.cu: each
+    output byte written at its rank among the row's output positions, no
+    sort) and nothing else, a CPU tensor the plain version.
+    """
+    if data_u8.is_cuda:
+        from . import emit_sorted as es
+        return es.emit_snappy(data_u8.contiguous(), n.to(_I32).contiguous(),
+                              sel, cpos, cml, coff, B, G)
+    if data_u8.device.type == "cpu":
+        return _emit_snappy_sorted_plain(data_u8, n, sel, cpos, cml, coff,
+                                         B, G)
+    raise ValueError(f"_emit_snappy_sorted: unsupported device "
+                     f"{data_u8.device}")
+
+
+def _emit_snappy_sorted_plain(data_u8, n, sel, cpos, cml, coff, B: int,
+                              G: int):
     """Gather-free sort-emit serializer for the snappy element format (the
     snappy counterpart of lz4_device._emit_sorted): literal bytes carry
     their own input byte, matched "spare" positions carry the element

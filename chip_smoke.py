@@ -7,8 +7,8 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero before the last line:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build: nvcc for every CUDA source (compact.cu, zstd_scan.cu,
-     inflate_scan.cu, entropy_scan.cu, chain_scan.cu, match_find.cu) and
-     the host C++ library, started together (ptxas's registers and shared
+     inflate_scan.cu, entropy_scan.cu, chain_scan.cu, match_find.cu,
+     emit_sorted.cu) and the host C++ library, started together (ptxas's registers and shared
      memory of every kernel);
   3. every kernel against its plain PyTorch version, output for output:
      compact_rows (layout scan + bulk copy) at the main path's shapes
@@ -46,11 +46,21 @@ non-zero before the last line:
      more (match_adversarial, B = 256 and 4,096); match_runs alone on
      seeded rows whose runs and ladder chains cross its CTAs' slices at N
      = 1, 2, 3, 5 and 64 rows of 65,536 and 1, 9 and 17 of 4,096, with
-     the CTAs a row it picks at each (runs_adversarial);
+     the CTAs a row it picks at each (runs_adversarial); the kernel
+     emit_lz4 (csrc/emit_sorted.cu), launched once a compress call,
+     against the plain _emit_sorted on the path's real call (check_emit:
+     out, body, tail and flag equal; its graph-replay time, the plain
+     version's, the HBM bound, the peak memory of one call of each), then
+     emit_lz4 and emit_snappy on seeded rows (emit_rows at B = 65,536 and
+     4,096 through the tile parse at G = 2, 4 and 8: flagged rows, a row
+     whose lz4 body runs past B, all-literal, all-equal and padded rows)
+     and on seeded irregular parses with colliding output positions
+     (emit_adversarial);
   5. the bench encoder config (G=8, depth 5, nw 5, subm 64, lazy 1,
-     ext_passes 5) on the same corpus, and subchain_reach against its
-     plain version on its real input (SUBM 64); the match kernels on its
-     real call as in phase 4 (the saturated-match ladder runs here);
+     ext_passes 5) on the same corpus, its kernels' launches in 3 calls,
+     and subchain_reach against its plain version on its real input (SUBM
+     64); the match kernels on its real call as in phase 4 (the
+     saturated-match ladder runs here), emit_lz4 likewise;
   6. lz4hc: setup("lz4hc", opt_var=2, block_size=65536) at the default
      level 9 (the exact-parse encoder, G=0) on the same corpus: audit,
      launches, exact round trip, serial decode after skip_rap_frame, ratio
@@ -75,8 +85,10 @@ non-zero before the last line:
      audit, launches, ratio and MB/s beside the host tier's, peak memory,
      host round trip, serial snappy_uncompress after skip_rap_frame, the
      16-block stream's sha256 against the JAX package's, per-stage device
-     times, the match kernels on the real call as in phase 4; then device
-     decode of the stream through the API (exact,
+     times, the match kernels on the real call as in phase 4, the kernel
+     emit_snappy (launched once a compress call) on the real call as
+     emit_lz4 in phase 4; then device decode of the stream through the
+     API (exact,
      audited, launches per batch, MB/s beside the host decoder's) and its
      stage times; chain_marks against its plain version on the decode
      batch's real input;
@@ -169,12 +181,13 @@ non-zero before the last line:
      phase 4's stream); sharded.compress_blocks_multi on four virtual
      shards of the card (bodies and tails equal phase 4's, two compact_rows
      launches a shard, MB/s and peak memory beside the single-device tier
-     in turns; the match kernels on a shard's real call, N = 64, as in
-     phase 4); snappy, zlib 1 and 2 and zstd 1 through their *_multi
-     variants on four virtual shards (each stream equal to its phase's,
-     MB/s beside the single-device variant in turns, fse_encode_scan,
-     kraft_absorb and weights_fse_encode once a zstd shard, kraft_absorb
-     twice a zlib-2 shard); the lz4 MULTI decoder on four virtual shards
+     in turns; the match kernels and emit_lz4 on a shard's real call, N =
+     64, as in phase 4); snappy, zlib 1 and 2 and zstd 1 through their
+     *_multi variants on four virtual shards (each stream equal to its
+     phase's, MB/s beside the single-device variant in turns,
+     fse_encode_scan, kraft_absorb and weights_fse_encode once a zstd
+     shard, kraft_absorb twice a zlib-2 shard; emit_snappy on a snappy
+     shard's real call); the lz4 MULTI decoder on four virtual shards
      (exact, MB/s likewise); compress_blocks_distributed in a single-rank
      NCCL group over a 1 x 4 host-chip mesh (tables and totals equal
      phase 4's); dryrun_multichip(4) on four virtual shards;
@@ -184,9 +197,10 @@ non-zero before the last line:
      its own in phase 9, kraft_absorb with its launches in phases 9, 10
      and 13 (its times at zlib 2's 288-symbol call), weights_fse_encode
      with its own in phases 10 and 13, subchain_reach (its times at the
-     main path's input) and chain_marks (at lz4hc 9's), and the three match
-     kernels (at the main path's call), with their launches summed over
-     every path driven with the counts set to 0;
+     main path's input) and chain_marks (at lz4hc 9's), the three match
+     kernels (at the main path's call) and the two emit kernels (emit_lz4
+     at the main path's call, emit_snappy at snappy's), with their
+     launches summed over every path driven with the counts set to 0;
  15. last line: {"ok": true, "device": {...}}.
 """
 
@@ -364,8 +378,9 @@ def phase_card():
 
 def phase_build():
     from aocl_compression_tpu_torch.ops import (chain_scan, compact,
-                                                entropy_scan, inflate_scan,
-                                                match_find, zstd_scan)
+                                                emit_sorted, entropy_scan,
+                                                inflate_scan, match_find,
+                                                zstd_scan)
     from aocl_compression_tpu_torch.runtime import native
 
     def timed(fn):
@@ -387,6 +402,7 @@ def phase_build():
         stamped = ex.submit(timed, phases)
         chain = ex.submit(timed, chain_scan.build)
         match = ex.submit(timed, match_find.build)
+        emit = ex.submit(timed, emit_sorted.build)
         host = ex.submit(timed, native.get_lib)
         print(f"[build] nvcc csrc/compact.cu (sm_90a): {nvcc.result():.2f} s; "
               f"nvcc csrc/zstd_scan.cu (sm_90a): {scan.result():.2f} s; "
@@ -396,10 +412,12 @@ def phase_build():
               f"{stamped.result():.2f} s); "
               f"nvcc csrc/chain_scan.cu (sm_90a): {chain.result():.2f} s; "
               f"nvcc csrc/match_find.cu (sm_90a): {match.result():.2f} s; "
+              f"nvcc csrc/emit_sorted.cu (sm_90a): {emit.result():.2f} s; "
               f"host library (make -C csrc): {host.result():.2f} s")
     for log in (compact.build_log, zstd_scan.build_log,
                 inflate_scan.build_log, entropy_scan.build_log,
-                chain_scan.build_log, match_find.build_log):
+                chain_scan.build_log, match_find.build_log,
+                emit_sorted.build_log):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
@@ -1114,13 +1132,199 @@ def runs_adversarial(dev):
         MATCH["match_runs"]["max_abs_err"], err)
 
 
+# --- the sort-emit serializers (csrc/emit_sorted.cu) -------------------------
+
+# kernel name -> its check at its path's first call (emit_lz4 at phase 4's
+# main path, emit_snappy at phase 8's: the kernels line's times), with the
+# largest error of all its checks
+EMIT = {}
+# kernel name -> the largest error of its checks on seeded rows
+EMIT_SEEDED_ERR = {}
+
+
+def emit_fns(fmt):
+    """(module, dispatcher name, plain version, kernel wrapper) of the
+    serializer of fmt ("lz4" or "snappy")."""
+    from aocl_compression_tpu_torch.ops import emit_sorted as es
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    from aocl_compression_tpu_torch.ops import snappy_device as sd
+    if fmt == "lz4":
+        return ld, "_emit_sorted", ld._emit_sorted_plain, es.emit_lz4
+    return (sd, "_emit_snappy_sorted", sd._emit_snappy_sorted_plain,
+            es.emit_snappy)
+
+
+def emit_bytes(N, Bk, G):
+    """Each input read once, each output written once: data (N, Bk) uint8,
+    n (N,) int32, the tile parse sel (N, M) bool and cpos / cml / coff (N,
+    M) int32; out (N, Bk) uint8, body and tail (N,) int32, flag (N,)
+    bool."""
+    return 2 * N * Bk + 13 * N * (Bk // G) + 13 * N
+
+
+def _emit_unit(rng, lit):
+    """A flagged sequence: lit random bytes whose last 8 hold a word w
+    found nowhere else, then w again (a 4-byte match at offset 8, 8-aligned
+    when the unit is, so every G <= 8 elects it) and 4 random bytes."""
+    a = rng.integers(0, 256, lit + 8).astype(np.uint8)
+    a[lit - 8:lit - 4] = a[lit:lit + 4] = rng.integers(0, 256, 4)
+    return a
+
+
+def emit_rows(Bk: int, seed: int):
+    """Seeded rows for the emit kernels, (7, Bk) uint8 and their n (int32):
+    text with a flagged unit near the front (a literal run of 312 bytes
+    closed by a 4-byte match: its headers need more bytes than the match
+    has spares), flagged units end to end up to the last match the
+    end-of-block rules allow (the lz4 body runs past Bk), random bytes
+    (all literal), one repeated byte, text, a padded last block (n = Bk -
+    1,093, random bytes past n), random bytes closed by a long match."""
+    rng = np.random.default_rng(seed)
+    words = np.frombuffer(b"the of compression data block match hash ",
+                          np.uint8)
+    text = lambda k: words[rng.integers(0, words.size, k)]  # noqa: E731
+    out, ns = [], []
+    a = text(Bk)
+    u = _emit_unit(rng, 320)
+    a[64:64 + u.size] = u
+    out.append(a), ns.append(Bk)
+    k = (Bk - 8) // 280
+    lead = (Bk - 8 - 280 * k) // 8 * 8
+    a = rng.integers(0, 256, Bk).astype(np.uint8)
+    a[lead:lead + 280 * k] = np.concatenate([_emit_unit(rng, 272)
+                                             for _ in range(k)])
+    out.append(a), ns.append(Bk)
+    out.append(rng.integers(0, 256, Bk).astype(np.uint8)), ns.append(Bk)
+    out.append(np.full(Bk, 97, np.uint8)), ns.append(Bk)
+    out.append(text(Bk)), ns.append(Bk)
+    a = text(Bk)
+    a[Bk - 1093:] = rng.integers(0, 256, 1093)
+    out.append(a), ns.append(Bk - 1093)
+    a = rng.integers(0, 256, Bk).astype(np.uint8)
+    a[Bk // 2:Bk // 2 + 600] = a[100:700]
+    out.append(a), ns.append(Bk)
+    return np.stack(out), np.array(ns, np.int32)
+
+
+def emit_parse(arr, lens, Bk: int, G: int, dev="cpu"):
+    """The encoders' tile parse of rows at grid G on dev: the lz4 main
+    path's and snappy's matcher settings (depth 4, nw 8), and at G = 8 the
+    bench config's (depth 5, nw 5, subm 64, lazy 1, ext_passes 5)."""
+    from aocl_compression_tpu_torch.ops import lz4_device as ld
+    data = torch.from_numpy(arr).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    if G == 8:
+        mlen, moff, valid = ld._find_matches(data, n, Bk, depth=5, nw=5,
+                                             ext_passes=5)
+        valid = ld._lazy_demote(mlen, valid)
+        return ld._grid_select(mlen, moff, valid, Bk, G, subm=64,
+                               match_cap=ld._match_cap(8, 5, 64, 5))
+    mlen, moff, valid = ld._find_matches(data, n, Bk, depth=4, nw=8)
+    return ld._grid_select(mlen, moff, valid, Bk, G, match_cap=36)
+
+
+def emit_irregular(Bk: int, G: int, seed: int, N: int = 4):
+    """Seeded tile parses no _grid_select gives, as numpy arrays (rows, n,
+    sel, cpos, cml, coff): random selections whose sequences overlap
+    (output positions collide, literal runs go negative), lengths from 1,
+    offsets up to 70,000, positions anywhere in [0, Bk)."""
+    rng = np.random.default_rng(seed)
+    M = Bk // G
+    sel = rng.random((N, M)) < np.array([0.05, 0.3, 0.6, 0.9])[:N, None]
+    t = np.arange(M)[None, :] * G
+    cpos = (t + rng.integers(-3 * G, 3 * G, (N, M))).clip(0, Bk - 1)
+    cml = rng.integers(1, 90, (N, M))
+    coff = rng.integers(1, 70000, (N, M))
+    arr = rng.integers(0, 256, (N, Bk)).astype(np.uint8)
+    lens = np.array([Bk, Bk - 5, Bk // 2, Bk][:N], np.int32)
+    return (arr, lens, sel, cpos.astype(np.int32), cml.astype(np.int32),
+            coff.astype(np.int32))
+
+
+def check_emit(label, fmt, run, main=False):
+    """The emit kernel of fmt against its plain version on a path's real
+    call (captured while run() runs): all four outputs equal; the kernel's
+    graph-replay time, the plain version's (device events, one call), the
+    HBM bound, and the peak memory of one dispatcher call (the kernel and
+    its outputs) and of one plain call above the memory in use before
+    each. main: the kernels line's times."""
+    mod, name, plain, kernel = emit_fns(fmt)
+    data, n, sel, cpos, cml, coff, Bk, G = capture(mod, name, run)[0]
+    args = (data.contiguous(), n.to(torch.int32).contiguous(), sel, cpos,
+            cml, coff, Bk, G)
+    N = data.shape[0]
+    want, plain_ms = device_call_ms(lambda: plain(*args))
+    got = kernel(*args)
+    err = check_equal(f"emit_{fmt} ({label})", list(got), list(want))
+    flagged, past = int(got[3].sum()), int((got[1] > Bk).sum())
+    del want, got
+    ms = graph_ms(lambda: kernel(*args))
+    mem = peak_above(lambda: getattr(mod, name)(*args))
+    mem_plain = peak_above(lambda: plain(*args))
+    nbytes = emit_bytes(N, Bk, G)
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    print(f"[emit kernel] emit_{fmt} ({label}: N={N}, B={Bk}, G={G}; "
+          f"{flagged} flagged rows, {past} with body > B) vs its plain "
+          f"version on the path's real call: equal on out, body, tail, "
+          f"flag; kernel {ms:.4f} ms (CUDA-graph replay), plain "
+          f"{plain_ms:.2f} ms (one call, device events), bound "
+          f"{res['bound_ms']:.4f} ms ({nbytes} B at 3.35 TB/s); peak "
+          f"memory of one call above the memory in use before it: kernel "
+          f"{mem / 1e6:.1f} MB, plain {mem_plain / 1e6:.1f} MB")
+    key = f"emit_{fmt}"
+    prev = EMIT.get(key)
+    e = max(err, prev["max_abs_err"] if prev else 0)
+    if main or prev is None:
+        EMIT[key] = res
+    EMIT[key]["max_abs_err"] = e
+
+
+def emit_adversarial(dev):
+    """Both emit kernels against their plain versions (on the card) on
+    emit_rows at B = 65,536 and 4,096 through the tile parse at G = 2, 4
+    and 8, and on emit_irregular's parses at 1,024 (G = 2, 4, 8)."""
+    tot = dict.fromkeys(("rows", "flagged", "past"), 0)
+    for fmt in ("lz4", "snappy"):
+        _, _, plain, kernel = emit_fns(fmt)
+        cases = []
+        for Bk, seed in ((65536, 31), (4096, 32)):
+            arr, lens = emit_rows(Bk, seed)
+            for G in (2, 4, 8):
+                cases.append((f"B={Bk}, G={G}", (arr, lens) + tuple(
+                    emit_parse(arr, lens, Bk, G, dev)), Bk, G))
+        for G in (2, 4, 8):
+            cases.append((f"irregular, G={G}",
+                          emit_irregular(1024, G, seed=G), 1024, G))
+        e = 0
+        for label, parts, Bk, G in cases:
+            args = tuple(x if torch.is_tensor(x) else
+                         torch.from_numpy(x).to(dev) for x in parts)
+            want = plain(*args, Bk, G)
+            got = kernel(*args, Bk, G)
+            e = max(e, check_equal(f"emit_{fmt} ({label})", list(got),
+                                   list(want)))
+            if not label.startswith("irregular"):
+                tot["rows"] += got[0].shape[0]
+                tot["flagged"] += int(got[3].sum())
+                tot["past"] += int((got[1] > Bk).sum())
+        EMIT_SEEDED_ERR[f"emit_{fmt}"] = e
+    print(f"[emit kernel] emit_lz4, emit_snappy vs their plain versions on "
+          f"seeded rows (emit_rows: {tot['rows']} tile parses at B = 65,536 "
+          f"and 4,096, G = 2, 4, 8, {tot['flagged']} of them flagged, "
+          f"{tot['past']} with body > B) and on seeded irregular parses "
+          f"(colliding output positions, lengths below 4, offsets past 16 "
+          f"bits; B = 1,024): equal")
+
+
 def phase_main(data: bytes, blocks, arr, lens):
     import aocl_compression_tpu_torch as act
     from aocl_compression_tpu_torch.codecs.lz4 import _device_bodies
     from aocl_compression_tpu_torch.parallel import container
     from aocl_compression_tpu_torch.runtime import native
 
-    from aocl_compression_tpu_torch.ops import chain_scan, match_find
+    from aocl_compression_tpu_torch.ops import (chain_scan, emit_sorted,
+                                                match_find)
     from aocl_compression_tpu_torch.ops import lz4_device as ld
 
     dev = arr.device
@@ -1138,6 +1342,9 @@ def phase_main(data: bytes, blocks, arr, lens):
     if any(v != 3 for v in match_find.launches.values()):
         raise AssertionError(f"the match kernels did not launch once per "
                              f"compress call: {match_find.launches}")
+    if emit_sorted.launches != {"emit_lz4": 3, "emit_snappy": 0}:
+        raise AssertionError(f"emit_lz4 did not launch once per compress "
+                             f"call: {emit_sorted.launches}")
     d, d_s = best_s(lambda: act.decompress(h, c))
     if d != data:
         raise AssertionError("decompress did not return the input")
@@ -1167,6 +1374,9 @@ def phase_main(data: bytes, blocks, arr, lens):
     check_matches("lz4 main path", lambda: act.compress(h, data), main=True)
     match_adversarial(dev)
     runs_adversarial(dev)
+    check_emit("lz4 main path", "lz4", lambda: act.compress(h, data),
+               main=True)
+    emit_adversarial(dev)
 
     # the chain marking of the main path's encode: subchain_reach on its
     # real input, and one _grid_select call (device ops, memory)
@@ -1193,7 +1403,13 @@ def phase_bench(data: bytes, blocks, arr, lens):
         return compact.fetch_chunks(out, sizes), tails, flags
 
     run()
+    torch.cuda.synchronize()
+    reset_counts()
     (bodies, tails, flags), t = best_s(run)
+    counts = tally_paths()
+    if counts["emit_lz4"] != 3:
+        raise AssertionError(f"bench: emit_lz4 did not launch once per "
+                             f"call: {counts}")
     tails = tails.tolist()
     for i in np.nonzero(flags.cpu().numpy())[0]:
         stream, tl = native.lz4_compress_tail(blocks[i], 3)
@@ -1206,11 +1422,14 @@ def phase_bench(data: bytes, blocks, arr, lens):
     print(f"[bench] make_encoder({B}, 8, 5, 5, subm=64, lazy=1, "
           f"ext_passes=5) + fetch_chunks: ratio {len(data) / len(joined):.4f},"
           f" {len(data) / 1e6 / t:.2f} MB/s (best of 3, {t * 1e3:.2f} ms); "
-          f"stitched stream decodes exactly")
+          f"stitched stream decodes exactly; {int(flags.sum())} flagged "
+          f"blocks; chain, match and emit kernels' launches in 3 calls: "
+          f"{json.dumps(counts)}")
     nxt, subm = capture(lz4_device, "_reach_from_start",
                         lambda: enc(arr, lens))[0]
     check_reach(f"bench config, SUBM {subm}", nxt, subm)
     check_matches("bench config", lambda: enc(arr, lens))
+    check_emit("bench config", "lz4", lambda: enc(arr, lens))
 
 
 def rap_stream(chunks, dlens, pre=b""):
@@ -1260,30 +1479,34 @@ def fmt_stages(stage):
 def reset_counts():
     """Every kernel launch count (compact.launches, zstd_scan.launches,
     inflate_scan.launches, entropy_scan.launches, chain_scan.launches,
-    match_find.launches) to 0."""
+    match_find.launches, emit_sorted.launches) to 0."""
     from aocl_compression_tpu_torch.ops import (chain_scan, compact,
-                                                entropy_scan, inflate_scan,
-                                                match_find, zstd_scan)
+                                                emit_sorted, entropy_scan,
+                                                inflate_scan, match_find,
+                                                zstd_scan)
     compact.launches = 0
     for counts in (zstd_scan.launches, inflate_scan.launches,
                    entropy_scan.launches, chain_scan.launches,
-                   match_find.launches):
+                   match_find.launches, emit_sorted.launches):
         for k in counts:
             counts[k] = 0
 
 
-# The chain and match kernels' launches summed over every path run with the
-# counts set to 0 just before (run_path, counted, in_turns): the kernels
-# line's counts.
+# The chain, match and emit kernels' launches summed over every path run
+# with the counts set to 0 just before (run_path, counted, in_turns, phase
+# 5): the kernels line's counts.
 PATH_LAUNCHES = {"subchain_reach": 0, "chain_marks": 0, "match_keys": 0,
-                 "match_candidates": 0, "match_runs": 0}
+                 "match_candidates": 0, "match_runs": 0, "emit_lz4": 0,
+                 "emit_snappy": 0}
 
 
 def tally_paths():
-    """chain_scan.launches and match_find.launches since the last
-    reset_counts(), added to PATH_LAUNCHES; returns them."""
-    from aocl_compression_tpu_torch.ops import chain_scan, match_find
-    got = dict(chain_scan.launches, **match_find.launches)
+    """chain_scan.launches, match_find.launches and emit_sorted.launches
+    since the last reset_counts(), added to PATH_LAUNCHES; returns them."""
+    from aocl_compression_tpu_torch.ops import (chain_scan, emit_sorted,
+                                                match_find)
+    got = dict(chain_scan.launches, **match_find.launches,
+               **emit_sorted.launches)
     for k, v in got.items():
         PATH_LAUNCHES[k] += v
     return got
@@ -1315,8 +1538,8 @@ def run_path(label, fn, hits_want, calls=3, per_call=None):
     chain = tally_paths()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
-          f"compact_rows launches in {calls} calls: {launches}; chain and "
-          f"match kernels' launches: {json.dumps(chain)}")
+          f"compact_rows launches in {calls} calls: {launches}; chain, "
+          f"match and emit kernels' launches: {json.dumps(chain)}")
     for name in hits_want:
         if hits.get(name) != calls * (per_call or {}).get(name, 1):
             raise AssertionError(f"{label}: {name} was not hit as often as "
@@ -1511,6 +1734,7 @@ def phase_snappy(data: bytes, blocks, dev):
     import aocl_compression_tpu_torch as act
     from aocl_compression_tpu_torch.codecs.snappy import (_device_frags,
                                                           _varint)
+    from aocl_compression_tpu_torch.ops import emit_sorted
     from aocl_compression_tpu_torch.ops import lz4_device as ld
     from aocl_compression_tpu_torch.ops import snappy_device as sd
     from aocl_compression_tpu_torch.parallel import container
@@ -1525,6 +1749,9 @@ def phase_snappy(data: bytes, blocks, dev):
     if launches != 2 * 3:
         raise AssertionError("snappy: compact_rows did not launch its two "
                              "kernels once per compress call")
+    if emit_sorted.launches != {"emit_lz4": 0, "emit_snappy": 3}:
+        raise AssertionError(f"snappy: emit_snappy did not launch once per "
+                             f"compress call: {emit_sorted.launches}")
     d, d_s = best_s(lambda: act.decompress(h, c))
     if d != data:
         raise AssertionError("snappy: decompress did not return the input")
@@ -1542,6 +1769,7 @@ def phase_snappy(data: bytes, blocks, dev):
     check_pinned("snappy", act.compress(h, data[:PINNED_BLOCKS * B]))
     STREAMS["snappy"] = c
     check_matches("snappy", lambda: act.compress(h, data))
+    check_emit("snappy", "snappy", lambda: act.compress(h, data), main=True)
 
     stage, stream = staged(
         lambda rec: _device_frags(blocks, 2, dev, mark=rec),
@@ -2527,8 +2755,8 @@ def counted(label, fn, hits_want):
         dispatch.enable_audit(False)
     chain = tally_paths()
     print(f"[{label}] dispatch audit: {json.dumps(hits, sort_keys=True)}; "
-          f"compact_rows launches: {launches}; chain and match kernels' "
-          f"launches: {json.dumps(chain)}")
+          f"compact_rows launches: {launches}; chain, match and emit "
+          f"kernels' launches: {json.dumps(chain)}")
     for name, want in hits_want.items():
         if hits.get(name) != want:
             raise AssertionError(f"{label}: {name} was hit "
@@ -2908,6 +3136,7 @@ def phase_multi(data: bytes, blocks, dev):
                              "shard")
     paths["multi: lz4 4 virtual shards"] = launches
     check_matches("a shard of 4 virtual shards", multi)
+    check_emit("a shard of 4 virtual shards", "lz4", multi)
     print(f"[multi] compress_blocks_multi(blocks, 2, num_shards=4, devices="
           f"[{dev}] * 4): bodies and tails equal phase 4's path; "
           f"compact_rows launches in 3 calls {launches}; "
@@ -2965,6 +3194,12 @@ def phase_multi(data: bytes, blocks, dev):
               f"stream; " + fmt_turns(mb, times) + f"; audit "
               f"{json.dumps(hits, sort_keys=True)}; compact_rows launches "
               f"{n}" + "".join(f", {k} {v}" for k, v in got_scans.items()))
+
+    check_emit("a snappy shard of 4 virtual shards", "snappy",
+               lambda: dispatch.resolve("snappy", "compress_blocks",
+                                        TIER_MULTI)(blocks, 2, dev,
+                                                    num_shards=4,
+                                                    devices=devices))
 
     # 4. the lz4 decoder over 4 virtual shards (the variant device decode
     # resolves), on phase 4's stream, beside the single-device decoder
@@ -3200,7 +3435,21 @@ def main():
             launches=PATH_LAUNCHES[name], max_abs_err=st["max_abs_err"],
             ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by="bytes", library_ms=st.get("library_ms")))
-    print("[paths] chain and match kernels' launches: "
+    replaces = {
+        "emit_lz4": "aocl_compression_tpu/ops/lz4_device.py:533-660",
+        "emit_snappy": "aocl_compression_tpu/ops/snappy_device.py:192-320"}
+    for name, where in replaces.items():
+        if not PATH_LAUNCHES[name]:
+            raise AssertionError(f"{name} was never launched on the paths")
+        st = EMIT[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aocl_compression_tpu_torch/csrc/emit_sorted.cu",
+            replaces=where, launches=PATH_LAUNCHES[name],
+            max_abs_err=max(st["max_abs_err"], EMIT_SEEDED_ERR[name]),
+            ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by="bytes", library_ms=None))
+    print("[paths] chain, match and emit kernels' launches: "
           + json.dumps(PATH_LAUNCHES))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
